@@ -6,6 +6,8 @@ in-window conflict graph, and the execution waves (ops/wavefront.py), fused
 in ops/sharded.py::resolve_step.  On the card the mask and the waves run as
 hand-written CUDA kernels (ops/cuda_kernels.py, sources in csrc/); the plain
 PyTorch versions are the CPU path and the oracle the kernels are held == to.
+The TPC-C replay's key-set windows (ops/keyset.py) run the same way, with
+their own kernel on the card.
 
 The kernel wrappers are resolved lazily (PEP 562), as the JAX package
 resolves its Pallas entry points.  Nothing is built on import: each kernel
@@ -18,10 +20,12 @@ from accord_tpu_torch.ops.encode import (BatchEncoder, DeviceBatch,
 from accord_tpu_torch.ops.deps_kernel import (batched_active_deps,
                                               conflict_edges, in_batch_graph)
 from accord_tpu_torch.ops.wavefront import execution_waves, waves_oracle
+from accord_tpu_torch.ops.keyset import (cross_window_deps, keyset_windows,
+                                         shared_keys)
 from accord_tpu_torch.ops.sharded import resolve_step
 
 _KERNEL_EXPORTS = ("batched_active_deps_cuda", "deps_tile_cuda",
-                   "execution_waves_cuda")
+                   "execution_waves_cuda", "keyset_windows_cuda")
 
 # the kernel names are deliberately NOT in __all__: a star-import resolves
 # every __all__ entry and would defeat the lazy lookup below
@@ -29,6 +33,7 @@ __all__ = [
     "BatchEncoder", "DeviceState", "DeviceBatch", "scalar_deps_oracle",
     "window_to_tensors", "batched_active_deps", "conflict_edges",
     "in_batch_graph", "execution_waves", "waves_oracle", "resolve_step",
+    "shared_keys", "keyset_windows", "cross_window_deps",
 ]
 
 

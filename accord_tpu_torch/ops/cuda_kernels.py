@@ -1,12 +1,14 @@
 """Hand-written CUDA kernels for Hopper: build, loading, wrappers, counters.
 
-The counterpart of ``accord_tpu/ops/pallas_kernels.py`` for the two kernels on
-the flush-window path:
+The counterpart of ``accord_tpu/ops/pallas_kernels.py``:
 
 * K1, the deps tile (``csrc/deps_tile.cu``), replaces ``_deps_kernel``
   (entry ``batched_active_deps_pallas``);
 * K2, the wavefront (``csrc/wavefront.cu``), replaces ``_waves_kernel``
-  (entry ``execution_waves_pallas``).
+  (entry ``execution_waves_pallas``);
+* K4, the key-set windows (``csrc/keyset_windows.cu``), replaces
+  ``_keyset_windows_kernel`` (entry ``keyset_windows_pallas``) on the TPC-C
+  replay lane.
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface, at first use, into ``accord_tpu_torch/_build/`` under a
@@ -14,10 +16,10 @@ name keyed by a hash of the source and the flags, and bound with ctypes.
 Importing this module builds nothing.
 
 Every wrapper takes the plain PyTorch version (ops/deps_kernel.py,
-ops/wavefront.py) when its tensors lie on the CPU, and only then: on CUDA
-tensors it launches its kernel or raises.  Each launch's error code is
-checked, and each wrapper adds one to its kernel's ``launches`` count where
-it launches, and nowhere else.
+ops/wavefront.py, ops/keyset.py) when its tensors lie on the CPU, and only
+then: on CUDA tensors it launches its kernel or raises.  Each launch's error
+code is checked, and each wrapper adds one to its kernel's ``launches``
+count where it launches, and nowhere else.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
-from accord_tpu_torch.ops import deps_kernel, wavefront
+from accord_tpu_torch.ops import deps_kernel, keyset, wavefront
 
 _PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = _PACKAGE / "csrc"
@@ -129,7 +131,15 @@ WAVEFRONT = Kernel("wavefront", "wavefront.cu", {
     "wavefront_bits_in_smem": ((_I,), _I),
     "wavefront_error_string": ((_I,), ctypes.c_char_p),
 })
-KERNELS = (DEPS_TILE, WAVEFRONT)
+KEYSET_WINDOWS = Kernel("keyset_windows", "keyset_windows.cu", {
+    "keyset_windows_plan": ((_I, _I, _I, ctypes.POINTER(_I),
+                             ctypes.POINTER(ctypes.c_longlong)), _I),
+    "keyset_windows_launch": ((_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+                              _I),
+    "keyset_windows_error_string": ((_I,), ctypes.c_char_p),
+})
+KERNELS = (DEPS_TILE, WAVEFRONT, KEYSET_WINDOWS)
+KEYSET_MAX_P = 16
 
 
 def build(kernels: Iterable[Kernel] = KERNELS,
@@ -268,3 +278,45 @@ def execution_waves_cuda(dep_bb):
     WAVEFRONT.check(code)
     WAVEFRONT.launches += 1
     return wave
+
+
+def keyset_windows_cuda(txn_keys, txn_rank, reps: int = 1):
+    """Counterpart of ``keyset_windows_pallas``: K4 on CUDA tensors,
+    ``keyset.keyset_windows`` on CPU tensors.  txn_keys [W, B, P] int32
+    (negative = pad, 1 <= P <= 16), txn_rank [W, B] int32 (negative = pad)
+    -> (in_window_edges [W] int32, max_wave [W] int32)."""
+    dev = _cuda_device((txn_keys, txn_rank))
+    if dev is None:
+        return keyset.keyset_windows(txn_keys, txn_rank, reps)
+    if txn_keys.dim() != 3:
+        raise ValueError(f"txn_keys: expected [W, B, P], got "
+                         f"{tuple(txn_keys.shape)}")
+    w, b, p = txn_keys.shape
+    _require(txn_keys, "txn_keys", torch.int32, (w, b, p))
+    _require(txn_rank, "txn_rank", torch.int32, (w, b))
+    if not 1 <= p <= KEYSET_MAX_P or b == 0 or b > 65535:
+        raise ValueError(f"key-set windows take 1 <= P <= {KEYSET_MAX_P} and "
+                         f"0 < B <= 65535: got B={b} P={p}")
+    if reps < 1 or reps * w >= 2 ** 31:
+        raise ValueError(f"reps must be >= 1 with reps*W < 2^31: got {reps}")
+    edges = torch.empty(w, dtype=torch.int32, device=dev)
+    max_wave = torch.empty(w, dtype=torch.int32, device=dev)
+    if w == 0:
+        return edges, max_wave
+    lib = KEYSET_WINDOWS.lib()
+    grid, words = _I(0), ctypes.c_longlong(0)
+    with torch.cuda.device(dev):
+        KEYSET_WINDOWS.check(lib.keyset_windows_plan(
+            p, b, reps * w, ctypes.byref(grid), ctypes.byref(words)))
+        if grid.value == 0:
+            raise ValueError(f"a window of B={b} rows of P={p} keys does not "
+                             f"fit in one block's shared memory")
+        scratch = torch.empty(words.value, dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.keyset_windows_launch(
+            txn_keys.data_ptr(), txn_rank.data_ptr(), w, b, p, reps * w,
+            grid.value, scratch.data_ptr(), edges.data_ptr(),
+            max_wave.data_ptr(), stream)
+    KEYSET_WINDOWS.check(code)
+    KEYSET_WINDOWS.launches += 1
+    return edges, max_wave

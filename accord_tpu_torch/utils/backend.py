@@ -8,6 +8,8 @@ only when the caller asks for it with ``device="cpu"``, as the tests do.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 HOPPER = (9, 0)
@@ -33,3 +35,13 @@ def resolve_device(device=None) -> torch.device:
             f"{torch.cuda.get_device_name(dev)} has compute capability "
             f"{cap[0]}.{cap[1]}; the kernels are built for sm_90a (Hopper)")
     return dev
+
+
+def card_name_and_power_limit() -> str:
+    """The first card's name and power limit as nvidia-smi reports them
+    ("NVIDIA H100 80GB HBM3, 700.00 W"): every time the port reports is
+    labelled with it, since a card set below its maximum power runs slower."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Proof on one H100 that the port builds and resolves a full flush window
-through its hand-written CUDA kernels.
+and the full TPC-C new-order replay through its hand-written CUDA kernels.
 
     python3 chip_smoke.py          (from the repository root, on a CUDA card)
 
 Phases; any failure raises, exits non-zero and prints no result lines:
- 1. build both kernels from accord_tpu_torch/csrc/ (one nvcc per source, all
-    started together) and print the build seconds and ptxas' report;
+ 1. build the three kernels from accord_tpu_torch/csrc/ (one nvcc per source,
+    all started together) and print the build seconds and ptxas' report;
  2. K1, the deps tile: kernel == plain torch on the card for three seeds of
     a small random world and for a world with K > 16384 (also cut to an E
     and a B that are not multiples of 4);
@@ -20,7 +20,19 @@ Phases; any failure raises, exits non-zero and prints no result lines:
     before and read just after; deps == the scalar oracle, edge count == the
     scalar scan's, every wave >= 0, both kernels launched;
  5. timing at the main path's shapes: each kernel's median ms (CUDA events),
-    its bound, its plain version's ms, and the window's edges/s.
+    its bound, its plain version's ms, and the window's edges/s;
+ 6. K4, the key-set windows: kernel == plain torch == the scalar
+    window_oracle on the tests/test_pallas.py inputs (W=3, B=128, P=11) for
+    three seeds at reps 1 and 3, on a B = 2048 window over a small key
+    domain (a DAG 784 waves deep) and on B = 1000 with permuted ranks;
+ 7. the TPC-C replay at full size (1M txns, 64 warehouses, 489 windows of
+    2048): tpcc.prepare, then tpcc.resolve with the launch counts zeroed
+    just before and read just after; the counts == bench_tpcc's on the CPU
+    (constants below), K4 launched once per K bucket, K4 == plain on every
+    bucket, window_oracle == K4 on windows 0, 244 and 488;
+ 8. timing of the lane: K4's median ms over both buckets, its bound and its
+    plain ms, the cross-window gather's ms, the whole pass's ms, txns/s and
+    the host preparation seconds.
 The tolerance everywhere is exact equality: every output is integer or bool.
 
 Then, on lines of their own: the card's name and power limit (nvidia-smi),
@@ -29,7 +41,6 @@ the kernels JSON object, and last {"ok": true, "device": {...}}.
 
 import json
 import statistics
-import subprocess
 import sys
 import time
 
@@ -40,6 +51,15 @@ import torch
 # non-tensor-core 32-bit rate taken for the kernels' integer operations
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+
+# bench.bench_tpcc() with its defaults (seed 42), run on the CPU with the JAX
+# package: the full replay's counts, the only tie to the reference on a
+# machine without JAX
+TPCC_WINDOWS = 489
+TPCC_EDGES = 7_545_444
+TPCC_CROSS = 5_929_224
+TPCC_IN_WINDOW = 1_616_220
+TPCC_MAX_WAVE = 13
 
 
 def log(msg: str) -> None:
@@ -81,18 +101,20 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    from accord_tpu_torch import tpcc
     from accord_tpu_torch.entry import entry
     from accord_tpu_torch.ops import cuda_kernels as ck
-    from accord_tpu_torch.ops import deps_kernel, wavefront
+    from accord_tpu_torch.ops import deps_kernel, keyset, wavefront
     from accord_tpu_torch.ops.encode import (BatchEncoder, scalar_deps_oracle,
                                              window_to_tensors)
+    from accord_tpu_torch.utils.backend import card_name_and_power_limit
     from accord_tpu_torch.utils.random_source import RandomSource
     from accord_tpu_torch.workload import (build_world, random_world,
                                            scalar_edges_per_sec)
 
     dev = torch.device("cuda", 0)
     sys.setrecursionlimit(20000)  # waves_oracle recurses along DAG chains
-    err = {"deps_tile": 0, "wavefront": 0}
+    err = {"deps_tile": 0, "wavefront": 0, "keyset_windows": 0}
 
     # ---- 1. build
     t0 = time.perf_counter()
@@ -195,8 +217,8 @@ def main() -> int:
     dep_mask, dep_count, dep_bb, waves = fn(*args)
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in ck.KERNELS}
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel was not launched on the main path: {launches}")
+    check(launches["deps_tile"] > 0 and launches["wavefront"] > 0,
+          f"a kernel of the flush-window path was not launched: {launches}")
 
     n = len(batch)
     check(enc.decode_deps(dep_mask.cpu().numpy())
@@ -271,10 +293,127 @@ def main() -> int:
         f"{edges / (step_ms / 1e3):.1f} edges/s on the card; scalar host "
         f"scan {scalar_eps:.1f} edges/s")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    # ---- 6. K4 == plain == oracle
+    def keyset_vs_plain(label, tk, tr, reps=1):
+        got = ck.keyset_windows_cuda(tk, tr, reps=reps)
+        want = keyset.keyset_windows(tk, tr)
+        torch.cuda.synchronize()
+        e = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+        err["keyset_windows"] = max(err["keyset_windows"], e)
+        check(e == 0, f"K4 != plain on {label}")
+        return got
+
+    def keyset_case(label, tk_np, tr_np, reps=(1,)):
+        tk = torch.from_numpy(tk_np).to(dev)
+        tr = torch.from_numpy(tr_np).to(dev)
+        for r in reps:
+            edges_w, wave_w = keyset_vs_plain(f"{label}, reps {r}", tk, tr, r)
+        for wi in range(tk_np.shape[0]):
+            check(tpcc.window_oracle(tk_np[wi], tr_np[wi])
+                  == (int(edges_w[wi]), int(wave_w[wi])),
+                  f"K4 != window_oracle on {label}, window {wi}")
+        log(f"[K4] {label}: W={tk_np.shape[0]} B={tk_np.shape[1]} "
+            f"P={tk_np.shape[2]} edges {edges_w.tolist()[:3]} max waves "
+            f"{wave_w.tolist()[:3]} == plain == oracle (reps {list(reps)})")
+
+    for seed in range(3):
+        # tests/test_pallas.py:116-121
+        rng = np.random.default_rng(900 + seed)
+        tk = np.where(rng.random((3, 128, 11)) < 0.9,
+                      rng.integers(0, 60, (3, 128, 11)), -1).astype(np.int32)
+        tr = np.tile(np.arange(128, dtype=np.int32), (3, 1))
+        tr[1, -7:] = -1
+        keyset_case(f"test_pallas inputs seed {900 + seed}", tk, tr, (1, 3))
+    rng = np.random.default_rng(2048)
+    tk = np.where(rng.random((1, 2048, 11)) < 0.9,
+                  rng.integers(0, 300, (1, 2048, 11)), -1).astype(np.int32)
+    tr = np.arange(2048, dtype=np.int32)[None].copy()
+    tr[0, -7:] = -1
+    keyset_case("B=2048 over 300 keys", tk, tr)
+    rng = np.random.default_rng(1000)
+    tk = np.where(rng.random((2, 1000, 11)) < 0.8,
+                  rng.integers(0, 200, (2, 1000, 11)),
+                  rng.integers(-3, 0, (2, 1000, 11))).astype(np.int32)
+    tr = np.stack([rng.permutation(1000) for _ in range(2)]).astype(np.int32)
+    tr[rng.random((2, 1000)) < 0.1] = -1
+    keyset_case("B=1000, permuted ranks", tk, tr, (1, 2))
+
+    # ---- 7. the TPC-C replay at full size
+    lane = tpcc.prepare(device=dev)
+    log(f"[tpcc] host preparation {lane.prep_seconds:.2f}s: "
+        f"{len(lane.windows)} windows, buckets "
+        f"{[tuple(s[2].shape) for s in lane.stacks]}")
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    counts = tpcc.resolve(lane)
+    torch.cuda.synchronize()
+    lane_launches = {k.name: k.launches for k in ck.KERNELS}
+    check(lane_launches["keyset_windows"] == len(lane.stacks) == 2,
+          f"K4 not launched once per K bucket on the lane: {lane_launches}")
+    want = {"windows": TPCC_WINDOWS, "edges": TPCC_EDGES,
+            "edges_cross_window": TPCC_CROSS,
+            "edges_in_window": TPCC_IN_WINDOW, "max_wave_depth": TPCC_MAX_WAVE}
+    check({k: counts[k] for k in want} == want,
+          f"lane counts {counts} != bench_tpcc's {want}")
+    lane_out = []
+    for prevs, ranks, keyss in lane.stacks:
+        lane_out.append(keyset_vs_plain(f"lane bucket {tuple(keyss.shape)}",
+                                        keyss, ranks))
+    for wi in (0, 244, 488):
+        _, rank, keys = lane.windows[wi]
+        e_k, w_k = ck.keyset_windows_cuda(
+            torch.from_numpy(keys[None]).to(dev),
+            torch.from_numpy(rank[None]).to(dev))
+        check(tpcc.window_oracle(keys, rank) == (int(e_k[0]), int(w_k[0])),
+              f"K4 != window_oracle on lane window {wi}")
+    log(f"[tpcc] {counts}; launches {lane_launches}; K4 == plain on every "
+        f"bucket; window_oracle == K4 on windows 0, 244, 488")
+
+    # ---- 8. timing of the lane
+    def k4_pass():
+        for _, ranks, keyss in lane.stacks:
+            ck.keyset_windows_cuda(keyss, ranks)
+
+    def k4_plain_pass():
+        for _, ranks, keyss in lane.stacks:
+            keyset.keyset_windows(keyss, ranks)
+
+    def cross_pass():
+        for prevs, _, keyss in lane.stacks:
+            keyset.cross_window_deps(prevs, keyss)
+
+    k4_ms = median_ms(k4_pass, reps=7)
+    k4_plain_ms = median_ms(k4_plain_pass, reps=3)
+    cross_ms = median_ms(cross_pass, reps=7)
+    lane_ms = tpcc.resolve_ms(lane)
+    # the stacks' copy onto the card, from pageable host memory as prepare
+    # makes it (part of the host preparation seconds)
+    host_stacks = [tuple(t.cpu() for t in s) for s in lane.stacks]
+    h2d_ms = median_ms(lambda: [t.to(dev) for s in host_stacks for t in s],
+                       reps=3)
+    # K4 reads keys and ranks once and writes two int32 a window.  Its
+    # operations, for this run's data: a compare and an or for each of the
+    # P*P key pairs of every pair of valid rows r, c with rank c < rank r,
+    # then (max wave + 1) fixpoint iterations of (and, popc, add) per word
+    k4_bytes = sum(k.numel() * 4 + r.numel() * 4 + 2 * 4 * k.shape[0]
+                   for _, r, k in lane.stacks)
+    k4_ops = 0
+    for (_, ranks, keyss), (_, wave_w) in zip(lane.stacks, lane_out):
+        n_valid = (ranks >= 0).sum(dim=1).to(torch.int64)
+        b, p = keyss.shape[1], keyss.shape[2]
+        k4_ops += int((n_valid * (n_valid - 1) // 2).sum()) * p * p * 2
+        k4_ops += int((wave_w.to(torch.int64) + 1).sum()) * b \
+            * ((b + 31) // 32) * 3
+    k4_bound, k4_by = bound(k4_bytes, k4_ops)
+    log(f"[time] K4 keyset windows {k4_ms:.4f} ms over both buckets (plain "
+        f"{k4_plain_ms:.4f} ms, bound {k4_bound:.4f} ms by {k4_by}: "
+        f"{k4_bytes} bytes, {k4_ops} integer operations)")
+    log(f"[time] lane: cross_window_deps {cross_ms:.4f} ms, "
+        f"tpcc_neworder_resolve_ms {lane_ms:.4f}, "
+        f"{lane.txns / (lane_ms / 1e3):.1f} txns/s; host preparation "
+        f"{lane.prep_seconds:.2f} s, of which host-to-device {h2d_ms:.4f} ms; "
+        f"no single torch call computes K4, so its library_ms is null")
+
     kernels = [
         {"name": "deps_tile", "route": "cuda",
          "source": "accord_tpu_torch/csrc/deps_tile.cu",
@@ -288,8 +427,15 @@ def main() -> int:
          "launches": launches["wavefront"], "max_abs_err": err["wavefront"],
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
+        {"name": "keyset_windows", "route": "cuda",
+         "source": "accord_tpu_torch/csrc/keyset_windows.cu",
+         "replaces": "accord_tpu/ops/pallas_kernels.py:240",
+         "launches": lane_launches["keyset_windows"],
+         "max_abs_err": err["keyset_windows"],
+         "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
+         "bound_by": k4_by, "library_ms": None},
     ]
-    print(smi.stdout.strip().splitlines()[0])
+    print(card_name_and_power_limit())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

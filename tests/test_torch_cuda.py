@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from accord_tpu_torch.entry import entry
-from accord_tpu_torch.ops import cuda_kernels, deps_kernel, wavefront
+from accord_tpu_torch.ops import cuda_kernels, deps_kernel, keyset, wavefront
 from accord_tpu_torch.ops.encode import BatchEncoder, window_to_tensors
 from accord_tpu_torch.utils.random_source import RandomSource
 from accord_tpu_torch.workload import build_world, random_world
@@ -69,6 +69,31 @@ def test_resolve_step_on_card_matches_cpu(card):
     assert all(a.device.type == "cuda" for a in args)
     cuda_kernels.reset_launch_counts()
     got = fn(*args)
-    assert [k.launches for k in cuda_kernels.KERNELS] == [1, 1]
+    assert [k.launches for k in cuda_kernels.KERNELS] == [1, 1, 0]
     for g, w in zip(got, fn(*(a.cpu() for a in args))):
         assert torch.equal(g.cpu(), w)
+
+
+def _keyset_case(rng, w, b, p, domain):
+    tk = np.where(rng.random((w, b, p)) < 0.9,
+                  rng.integers(0, domain, (w, b, p)), -1).astype(np.int32)
+    tr = np.tile(np.arange(b, dtype=np.int32), (w, 1))
+    tr[min(1, w - 1), -7:] = -1                       # padded tail rows
+    return tk, tr
+
+
+@pytest.mark.parametrize("w,b,domain", [(3, 128, 60), (1, 2048, 300)])
+def test_keyset_windows_kernel_matches_plain(card, w, b, domain):
+    """K4 == its plain version on the tests/test_pallas.py inputs (reps 1
+    and 3) and on one B = 2048 window, whose bit matrix lives in global
+    scratch."""
+    tk, tr = _keyset_case(np.random.default_rng(b), w, b, 11, domain)
+    tk, tr = torch.from_numpy(tk).to(card), torch.from_numpy(tr).to(card)
+    want = keyset.keyset_windows(tk, tr)
+    for reps in (1, 3):
+        before = cuda_kernels.KEYSET_WINDOWS.launches
+        got = cuda_kernels.keyset_windows_cuda(tk, tr, reps=reps)
+        assert cuda_kernels.KEYSET_WINDOWS.launches == before + 1
+        for g, x in zip(got, want):
+            assert torch.equal(g, x)
+    assert int(want[1].max()) > 0
