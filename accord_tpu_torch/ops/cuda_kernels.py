@@ -139,7 +139,8 @@ KEYSET_WINDOWS = Kernel("keyset_windows", "keyset_windows.cu", {
     "keyset_windows_error_string": ((_I,), ctypes.c_char_p),
 })
 KERNELS = (DEPS_TILE, WAVEFRONT, KEYSET_WINDOWS)
-KEYSET_MAX_P = 16
+# the only key-set width K4 is instantiated for (csrc/keyset_windows.cu)
+KEYSET_P = 11
 
 
 def build(kernels: Iterable[Kernel] = KERNELS,
@@ -283,8 +284,8 @@ def execution_waves_cuda(dep_bb):
 def keyset_windows_cuda(txn_keys, txn_rank, reps: int = 1):
     """Counterpart of ``keyset_windows_pallas``: K4 on CUDA tensors,
     ``keyset.keyset_windows`` on CPU tensors.  txn_keys [W, B, P] int32
-    (negative = pad, 1 <= P <= 16), txn_rank [W, B] int32 (negative = pad)
-    -> (in_window_edges [W] int32, max_wave [W] int32)."""
+    (negative = pad; on the card P = 11), txn_rank [W, B] int32 (negative =
+    pad) -> (in_window_edges [W] int32, max_wave [W] int32)."""
     dev = _cuda_device((txn_keys, txn_rank))
     if dev is None:
         return keyset.keyset_windows(txn_keys, txn_rank, reps)
@@ -294,9 +295,9 @@ def keyset_windows_cuda(txn_keys, txn_rank, reps: int = 1):
     w, b, p = txn_keys.shape
     _require(txn_keys, "txn_keys", torch.int32, (w, b, p))
     _require(txn_rank, "txn_rank", torch.int32, (w, b))
-    if not 1 <= p <= KEYSET_MAX_P or b == 0 or b > 65535:
-        raise ValueError(f"key-set windows take 1 <= P <= {KEYSET_MAX_P} and "
-                         f"0 < B <= 65535: got B={b} P={p}")
+    if p != KEYSET_P or b == 0 or b > 65535:
+        raise ValueError(f"K4 takes P = {KEYSET_P} and 0 < B <= 65535: "
+                         f"got B={b} P={p}")
     if reps < 1 or reps * w >= 2 ** 31:
         raise ValueError(f"reps must be >= 1 with reps*W < 2^31: got {reps}")
     edges = torch.empty(w, dtype=torch.int32, device=dev)

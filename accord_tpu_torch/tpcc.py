@@ -39,7 +39,7 @@ import torch
 
 from accord_tpu_torch.ops import keyset
 from accord_tpu_torch.ops.cuda_kernels import keyset_windows_cuda
-from accord_tpu_torch.ops.wavefront import execution_waves, waves_oracle
+from accord_tpu_torch.ops.wavefront import waves_oracle
 from accord_tpu_torch.utils.backend import (card_name_and_power_limit,
                                             resolve_device)
 
@@ -114,19 +114,6 @@ def stack_buckets(windows: List[Window]) -> List[Window]:
         buckets.setdefault(win[0].shape[0], []).append(win)
     return [tuple(np.stack([w[i] for w in ws]) for i in range(3))
             for ws in buckets.values()]
-
-
-def resolve_window(prev: torch.Tensor, txn_rank: torch.Tensor,
-                   txn_keys: torch.Tensor):
-    """One window, plain (``bench.py::_tpcc_resolve_core``) ->
-    (dep_count [B] int32: cross-window deps a row, in_edges: 0-dim int32,
-    max_wave: 0-dim int32)."""
-    valid = txn_keys >= 0
-    pw = torch.where(valid, prev[txn_keys.clamp(min=0).to(torch.int64)], -1)
-    dep_count = (pw >= 0).sum(dim=1, dtype=torch.int32)
-    dep_bb = keyset.window_edges(txn_keys, txn_rank)
-    return (dep_count, dep_bb.sum(dtype=torch.int32),
-            execution_waves(dep_bb).max())
 
 
 def resolve_stack(prevs: torch.Tensor, ranks: torch.Tensor,

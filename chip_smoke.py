@@ -30,9 +30,10 @@ Phases; any failure raises, exits non-zero and prints no result lines:
     just before and read just after; the counts == bench_tpcc's on the CPU
     (constants below), K4 launched once per K bucket, K4 == plain on every
     bucket, window_oracle == K4 on windows 0, 244 and 488;
- 8. timing of the lane: K4's median ms over both buckets, its bound and its
-    plain ms, the cross-window gather's ms, the whole pass's ms, txns/s and
-    the host preparation seconds.
+ 8. timing of the lane: K4's median ms over both buckets, its bound (from
+    the bytes and a key-to-rows scan's operations on this run's data) and
+    its plain ms, the cross-window gather's ms, the whole pass's ms, txns/s
+    and the host preparation seconds.
 The tolerance everywhere is exact equality: every output is integer or bool.
 
 Then, on lines of their own: the card's name and power limit (nvidia-smi),
@@ -392,22 +393,38 @@ def main() -> int:
     h2d_ms = median_ms(lambda: [t.to(dev) for s in host_stacks for t in s],
                        reps=3)
     # K4 reads keys and ranks once and writes two int32 a window.  Its
-    # operations, for this run's data: a compare and an or for each of the
-    # P*P key pairs of every pair of valid rows r, c with rank c < rank r,
-    # then (max wave + 1) fixpoint iterations of (and, popc, add) per word
+    # function needs no more operations than a key-to-rows scan does, which
+    # are counted for this run's data: one for each valid key slot of a valid
+    # row (bucket it by key), one for each pair of rows that share a key (the
+    # pair's edge), and one for each edge and each row (the waves, by Kahn's
+    # layering).  The kernel's dense formulation (a compare and an or for
+    # each of the P*P key pairs of every valid pair c, r with rank c < rank
+    # r, then (max wave + 1) iterations of and, popc and add per word) is
+    # logged beside it and is not the bound.
     k4_bytes = sum(k.numel() * 4 + r.numel() * 4 + 2 * 4 * k.shape[0]
                    for _, r, k in lane.stacks)
-    k4_ops = 0
-    for (_, ranks, keyss), (_, wave_w) in zip(lane.stacks, lane_out):
+    k4_ops = k4_dense_ops = 0
+    for (_, ranks, keyss), (edges_w, wave_w) in zip(lane.stacks, lane_out):
+        n, b, p = keyss.shape
+        held = (keyss >= 0) & (ranks >= 0)[:, :, None]
+        span = int(keyss.max()) + 1
+        row = torch.arange(n * b, device=dev, dtype=torch.int64)
+        # distinct (row, key), then the rows of each (window, key)
+        slot = torch.unique((row.reshape(n, b, 1) * span + keyss)[held])
+        per_key = torch.unique(slot // (b * span) * span + slot % span,
+                               return_counts=True)[1]
+        k4_ops += int(held.sum()) + int((per_key * (per_key - 1) // 2).sum()) \
+            + int(edges_w.sum()) + n * b
         n_valid = (ranks >= 0).sum(dim=1).to(torch.int64)
-        b, p = keyss.shape[1], keyss.shape[2]
-        k4_ops += int((n_valid * (n_valid - 1) // 2).sum()) * p * p * 2
-        k4_ops += int((wave_w.to(torch.int64) + 1).sum()) * b \
+        k4_dense_ops += int((n_valid * (n_valid - 1) // 2).sum()) * p * p * 2
+        k4_dense_ops += int((wave_w.to(torch.int64) + 1).sum()) * b \
             * ((b + 31) // 32) * 3
     k4_bound, k4_by = bound(k4_bytes, k4_ops)
     log(f"[time] K4 keyset windows {k4_ms:.4f} ms over both buckets (plain "
-        f"{k4_plain_ms:.4f} ms, bound {k4_bound:.4f} ms by {k4_by}: "
-        f"{k4_bytes} bytes, {k4_ops} integer operations)")
+        f"{k4_plain_ms:.4f} ms, bound {k4_bound:.6f} ms by {k4_by}: "
+        f"{k4_bytes} bytes, {k4_ops} operations of a key-to-rows scan; the "
+        f"kernel's dense formulation does {k4_dense_ops} integer operations, "
+        f"{k4_dense_ops / PEAK_OPS_PER_S * 1e3:.4f} ms at the peak rate)")
     log(f"[time] lane: cross_window_deps {cross_ms:.4f} ms, "
         f"tpcc_neworder_resolve_ms {lane_ms:.4f}, "
         f"{lane.txns / (lane_ms / 1e3):.1f} txns/s; host preparation "

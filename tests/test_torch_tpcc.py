@@ -58,16 +58,19 @@ def test_keyset_windows_matches_pallas_interpret(seed):
 
 
 def test_resolve_window_matches_jax_core():
-    """Three lane windows (the last one short, with padded rows): dep counts,
-    in-window edges and max wave == bench._tpcc_resolve_core."""
+    """Three lane windows (the last one short, with padded rows), each
+    resolved as a one-window stack: cross-window deps, in-window edges and
+    max wave == bench._tpcc_resolve_core's dep counts summed, edges and
+    max wave."""
     core = bench._tpcc_resolve_core()
     windows = tpcc.tpcc_windows(tpcc.tpcc_keys(1400, 2, 3), 256)
     for prev, rank, keys in (windows[0], windows[3], windows[-1]):
-        want = core(prev, rank, keys)
-        got = tpcc.resolve_window(_t(prev), _t(rank), _t(keys))
-        assert got[0].dtype == torch.int32
-        for g, w in zip(got, want):
-            assert np.array_equal(g.numpy(), np.asarray(w))
+        dep_count, in_edges, max_wave = map(np.asarray, core(prev, rank, keys))
+        got = tpcc.resolve_stack(_t(prev[None]), _t(rank[None]),
+                                 _t(keys[None]))
+        assert all(g.dtype == torch.int32 for g in got)
+        assert [int(g) for g in got] == [int(dep_count.sum()), int(in_edges),
+                                         int(max_wave)]
         assert int(got[1]) > 0
 
 
