@@ -132,15 +132,15 @@ WAVEFRONT = Kernel("wavefront", "wavefront.cu", {
     "wavefront_error_string": ((_I,), ctypes.c_char_p),
 })
 KEYSET_WINDOWS = Kernel("keyset_windows", "keyset_windows.cu", {
-    "keyset_windows_plan": ((_I, _I, _I, ctypes.POINTER(_I),
-                             ctypes.POINTER(ctypes.c_longlong)), _I),
-    "keyset_windows_launch": ((_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
-                              _I),
+    "keyset_windows_plan": ((_I, _I, ctypes.POINTER(ctypes.c_longlong)), _I),
+    "keyset_windows_launch": ((_P, _P, _I, _I, _I, _P, _P, _P, _P, _P), _I),
     "keyset_windows_error_string": ((_I,), ctypes.c_char_p),
 })
 KERNELS = (DEPS_TILE, WAVEFRONT, KEYSET_WINDOWS)
-# the only key-set width K4 is instantiated for (csrc/keyset_windows.cu)
-KEYSET_P = 11
+# K4's range (csrc/keyset_windows.cu): keys a row, and key slots a window,
+# whose sorted index lives in one block's shared memory
+KEYSET_MAX_P = 16
+KEYSET_MAX_SLOTS = 22_528
 
 
 def build(kernels: Iterable[Kernel] = KERNELS,
@@ -281,43 +281,50 @@ def execution_waves_cuda(dep_bb):
     return wave
 
 
-def keyset_windows_cuda(txn_keys, txn_rank, reps: int = 1):
+def keyset_windows_cuda(txn_keys, txn_rank, stats=None):
     """Counterpart of ``keyset_windows_pallas``: K4 on CUDA tensors,
     ``keyset.keyset_windows`` on CPU tensors.  txn_keys [W, B, P] int32
-    (negative = pad; on the card P = 11), txn_rank [W, B] int32 (negative =
-    pad) -> (in_window_edges [W] int32, max_wave [W] int32)."""
-    dev = _cuda_device((txn_keys, txn_rank))
+    (negative = pad; on the card 1 <= P <= 16 and B*P <= 22,528), txn_rank
+    [W, B] int32 (negative = pad) -> (in_window_edges [W] int32, max_wave [W]
+    int32).  `stats`, an int32 [W, 3] CUDA tensor, receives the kernel's own
+    counts for each window: the slots of its index (the rows' shared keys),
+    its pair checks and its wave sweeps."""
+    args = (txn_keys, txn_rank) + (() if stats is None else (stats,))
+    dev = _cuda_device(args)
     if dev is None:
-        return keyset.keyset_windows(txn_keys, txn_rank, reps)
+        if stats is not None:
+            raise ValueError("stats are counted by the kernel: pass CUDA tensors")
+        return keyset.keyset_windows(txn_keys, txn_rank)
     if txn_keys.dim() != 3:
         raise ValueError(f"txn_keys: expected [W, B, P], got "
                          f"{tuple(txn_keys.shape)}")
     w, b, p = txn_keys.shape
     _require(txn_keys, "txn_keys", torch.int32, (w, b, p))
     _require(txn_rank, "txn_rank", torch.int32, (w, b))
-    if p != KEYSET_P or b == 0 or b > 65535:
-        raise ValueError(f"K4 takes P = {KEYSET_P} and 0 < B <= 65535: "
-                         f"got B={b} P={p}")
-    if reps < 1 or reps * w >= 2 ** 31:
-        raise ValueError(f"reps must be >= 1 with reps*W < 2^31: got {reps}")
+    if stats is not None:
+        _require(stats, "stats", torch.int32, (w, 3))
+    if not (1 <= p <= KEYSET_MAX_P and 1 <= b <= KEYSET_MAX_SLOTS // p):
+        raise ValueError(
+            f"K4 takes 1 <= P <= {KEYSET_MAX_P} keys a row and 1 <= B*P <= "
+            f"{KEYSET_MAX_SLOTS} key slots a window (its sorted index lives in "
+            f"one block's shared memory): got B={b} P={p}")
     edges = torch.empty(w, dtype=torch.int32, device=dev)
     max_wave = torch.empty(w, dtype=torch.int32, device=dev)
     if w == 0:
         return edges, max_wave
     lib = KEYSET_WINDOWS.lib()
-    grid, words = _I(0), ctypes.c_longlong(0)
+    words = ctypes.c_longlong(0)
     with torch.cuda.device(dev):
-        KEYSET_WINDOWS.check(lib.keyset_windows_plan(
-            p, b, reps * w, ctypes.byref(grid), ctypes.byref(words)))
-        if grid.value == 0:
-            raise ValueError(f"a window of B={b} rows of P={p} keys does not "
-                             f"fit in one block's shared memory")
-        scratch = torch.empty(words.value, dtype=torch.int32, device=dev)
+        KEYSET_WINDOWS.check(lib.keyset_windows_plan(p, b, ctypes.byref(words)))
+        if words.value == 0:
+            raise ValueError(f"the {b * p} key slots of a window do not fit in "
+                             f"one block's shared memory on this card")
+        scratch = torch.empty(w * words.value, dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.keyset_windows_launch(
-            txn_keys.data_ptr(), txn_rank.data_ptr(), w, b, p, reps * w,
-            grid.value, scratch.data_ptr(), edges.data_ptr(),
-            max_wave.data_ptr(), stream)
+            txn_keys.data_ptr(), txn_rank.data_ptr(), w, b, p,
+            scratch.data_ptr(), edges.data_ptr(), max_wave.data_ptr(),
+            None if stats is None else stats.data_ptr(), stream)
     KEYSET_WINDOWS.check(code)
     KEYSET_WINDOWS.launches += 1
     return edges, max_wave

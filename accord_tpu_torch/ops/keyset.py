@@ -57,19 +57,15 @@ def window_edges(txn_keys: torch.Tensor,
     return conflict_edges(shared_keys(txn_keys), txn_rank, wit, kind)
 
 
-def keyset_windows(txn_keys: torch.Tensor, txn_rank: torch.Tensor,
-                   reps: int = 1):
+def keyset_windows(txn_keys: torch.Tensor, txn_rank: torch.Tensor):
     """txn_keys [W, B, P] int32 (-1 pad), txn_rank [W, B] int32 (-1 pad) ->
-    (in_window_edges [W] int32, max_wave [W] int32).
-
-    Follows ``keyset_windows_pallas``: grid slot i of reps*W resolves window
-    (i + i // W) % W and later reps write the same values again.  Windows
-    are resolved one at a time: no [W, B, B] tensor is built."""
+    (in_window_edges [W] int32, max_wave [W] int32), as
+    ``keyset_windows_pallas`` computes them.  Windows are resolved one at a
+    time: no [W, B, B] tensor is built."""
     w = txn_keys.shape[0]
     edges = torch.zeros(w, dtype=torch.int32, device=txn_keys.device)
     max_wave = torch.zeros(w, dtype=torch.int32, device=txn_keys.device)
-    for i in range(reps * w):
-        wi = (i + i // w) % w
+    for wi in range(w):
         dep_bb = window_edges(txn_keys[wi], txn_rank[wi])
         edges[wi] = dep_bb.sum(dtype=torch.int32)
         max_wave[wi] = execution_waves(dep_bb).max()

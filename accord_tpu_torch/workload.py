@@ -9,7 +9,8 @@ shape of the reference's hot loop, CommandsForKey.mapReduceActive, reference
 accord/local/CommandsForKey.java:614-650, invoked per key per PreAccept).
 ``random_world`` is the small randomized world the equivalence checks use:
 every kind and status, slow-path executeAts and per-key deps, so the
-missing[] and elision paths are exercised.
+missing[] and elision paths are exercised.  ``keyset_cases`` are the
+key-set windows on which a sparse key-to-rows formulation can go wrong.
 """
 
 from __future__ import annotations
@@ -114,3 +115,48 @@ def random_world(rng: RandomSource, n_keys=12, n_existing=60, n_batch=16):
         touched = rng.sample(keys, 1 + rng.next_int(4))
         batch.append((tid, touched))
     return list(cfks.values()), batch
+
+
+def _keyset_window(rng, b, p, domain, pad=0.2):
+    """-> (txn_keys [1, b, p] int32: keys from `domain` values, unsorted and
+    repeated, negative pads anywhere; txn_rank [1, b] int32: a permutation)."""
+    tk = np.where(rng.random((1, b, p)) < 1 - pad,
+                  rng.integers(0, domain, (1, b, p)),
+                  rng.integers(-3, 0, (1, b, p)))
+    return tk.astype(np.int32), rng.permutation(b).astype(np.int32)[None]
+
+
+def keyset_cases(seed=0, full_slots=False):
+    """Key-set windows -> [(label, txn_keys [1, B, P] int32, txn_rank [1, B]
+    int32)]: tied ranks; keys at 0 and 2**31-1 with pads anywhere; a window
+    whose rows are all padded; one key held by every row (B = 64); P = 1;
+    P = 5.  With `full_slots`, also B = 2048 at P = 11 and B = 1408 at
+    P = 16, 22,528 key slots each."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    tk, _ = _keyset_window(rng, 96, 11, 40)
+    tr = rng.integers(0, 24, (1, 96)).astype(np.int32)
+    tr[rng.random((1, 96)) < 0.1] = -1
+    cases.append(("tied ranks", tk, tr))
+    tk, tr = _keyset_window(rng, 128, 11, 30)
+    tk = np.where(tk == 1, 2 ** 31 - 1, tk).astype(np.int32)
+    tk[0, rng.random((128, 11)) < 0.05] = 2 ** 31 - 1
+    tr[0, rng.random(128) < 0.1] = -1
+    cases.append(("keys 0 and 2**31-1", tk, tr))
+    tk, _ = _keyset_window(rng, 64, 11, 20)
+    cases.append(("all rows padded", tk, np.full((1, 64), -1, np.int32)))
+    tk, tr = _keyset_window(rng, 64, 11, 200)
+    tk[0, np.arange(64), rng.integers(0, 11, 64)] = 77
+    cases.append(("one key in every row", tk, tr))
+    tk, tr = _keyset_window(rng, 200, 1, 30)
+    tr[0, rng.random(200) < 0.1] = -1
+    cases.append(("P = 1", tk, tr))
+    tk, _ = _keyset_window(rng, 130, 5, 100)
+    tr = rng.integers(-1, 60, (1, 130)).astype(np.int32)
+    cases.append(("P = 5", tk, tr))
+    if full_slots:
+        for b, p, domain in ((2048, 11, 3000), (1408, 16, 3000)):
+            tk, tr = _keyset_window(rng, b, p, domain)
+            tr[0, rng.random(b) < 0.05] = -1
+            cases.append((f"B = {b}, P = {p}", tk, tr))
+    return cases

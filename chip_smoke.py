@@ -23,17 +23,22 @@ Phases; any failure raises, exits non-zero and prints no result lines:
     its bound, its plain version's ms, and the window's edges/s;
  6. K4, the key-set windows: kernel == plain torch == the scalar
     window_oracle on the tests/test_pallas.py inputs (W=3, B=128, P=11) for
-    three seeds at reps 1 and 3, on a B = 2048 window over a small key
-    domain (a DAG 784 waves deep) and on B = 1000 with permuted ranks;
+    three seeds, on a B = 2048 window over a small key domain (a DAG 784
+    waves deep), on B = 1000 with permuted ranks, on workload.keyset_cases
+    (tied ranks, keys at 0 and 2**31-1, all rows padded, one key in every
+    row, P = 1, P = 5, and 22,528 key slots at B = 2048, P = 11 and at
+    B = 1408, P = 16) and on one hot key held by all 2048 rows;
  7. the TPC-C replay at full size (1M txns, 64 warehouses, 489 windows of
     2048): tpcc.prepare, then tpcc.resolve with the launch counts zeroed
     just before and read just after; the counts == bench_tpcc's on the CPU
     (constants below), K4 launched once per K bucket, K4 == plain on every
     bucket, window_oracle == K4 on windows 0, 244 and 488;
- 8. timing of the lane: K4's median ms over both buckets, its bound (from
-    the bytes and a key-to-rows scan's operations on this run's data) and
-    its plain ms, the cross-window gather's ms, the whole pass's ms, txns/s
-    and the host preparation seconds.
+ 8. timing of the lane: K4's median ms for each K bucket and over both,
+    its bound (from the bytes and a key-to-rows scan's operations on this
+    run's data), the kernel's own work (slots sorted, pair checks, sweeps x
+    slots, counted by the kernel) and its plain ms, the cross-window
+    gather's ms, the whole pass's ms, txns/s and the host preparation
+    seconds.
 The tolerance everywhere is exact equality: every output is integer or bool.
 
 Then, on lines of their own: the card's name and power limit (nvidia-smi),
@@ -110,8 +115,8 @@ def main() -> int:
                                              window_to_tensors)
     from accord_tpu_torch.utils.backend import card_name_and_power_limit
     from accord_tpu_torch.utils.random_source import RandomSource
-    from accord_tpu_torch.workload import (build_world, random_world,
-                                           scalar_edges_per_sec)
+    from accord_tpu_torch.workload import (build_world, keyset_cases,
+                                           random_world, scalar_edges_per_sec)
 
     dev = torch.device("cuda", 0)
     sys.setrecursionlimit(20000)  # waves_oracle recurses along DAG chains
@@ -295,8 +300,8 @@ def main() -> int:
         f"scan {scalar_eps:.1f} edges/s")
 
     # ---- 6. K4 == plain == oracle
-    def keyset_vs_plain(label, tk, tr, reps=1):
-        got = ck.keyset_windows_cuda(tk, tr, reps=reps)
+    def keyset_vs_plain(label, tk, tr):
+        got = ck.keyset_windows_cuda(tk, tr)
         want = keyset.keyset_windows(tk, tr)
         torch.cuda.synchronize()
         e = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
@@ -304,18 +309,17 @@ def main() -> int:
         check(e == 0, f"K4 != plain on {label}")
         return got
 
-    def keyset_case(label, tk_np, tr_np, reps=(1,)):
+    def keyset_case(label, tk_np, tr_np):
         tk = torch.from_numpy(tk_np).to(dev)
         tr = torch.from_numpy(tr_np).to(dev)
-        for r in reps:
-            edges_w, wave_w = keyset_vs_plain(f"{label}, reps {r}", tk, tr, r)
+        edges_w, wave_w = keyset_vs_plain(label, tk, tr)
         for wi in range(tk_np.shape[0]):
             check(tpcc.window_oracle(tk_np[wi], tr_np[wi])
                   == (int(edges_w[wi]), int(wave_w[wi])),
                   f"K4 != window_oracle on {label}, window {wi}")
         log(f"[K4] {label}: W={tk_np.shape[0]} B={tk_np.shape[1]} "
             f"P={tk_np.shape[2]} edges {edges_w.tolist()[:3]} max waves "
-            f"{wave_w.tolist()[:3]} == plain == oracle (reps {list(reps)})")
+            f"{wave_w.tolist()[:3]} == plain == oracle")
 
     for seed in range(3):
         # tests/test_pallas.py:116-121
@@ -324,7 +328,7 @@ def main() -> int:
                       rng.integers(0, 60, (3, 128, 11)), -1).astype(np.int32)
         tr = np.tile(np.arange(128, dtype=np.int32), (3, 1))
         tr[1, -7:] = -1
-        keyset_case(f"test_pallas inputs seed {900 + seed}", tk, tr, (1, 3))
+        keyset_case(f"test_pallas inputs seed {900 + seed}", tk, tr)
     rng = np.random.default_rng(2048)
     tk = np.where(rng.random((1, 2048, 11)) < 0.9,
                   rng.integers(0, 300, (1, 2048, 11)), -1).astype(np.int32)
@@ -337,7 +341,15 @@ def main() -> int:
                   rng.integers(-3, 0, (2, 1000, 11))).astype(np.int32)
     tr = np.stack([rng.permutation(1000) for _ in range(2)]).astype(np.int32)
     tr[rng.random((2, 1000)) < 0.1] = -1
-    keyset_case("B=1000, permuted ranks", tk, tr, (1, 2))
+    keyset_case("B=1000, permuted ranks", tk, tr)
+    for label, tk, tr in keyset_cases(full_slots=True):
+        keyset_case(label, tk, tr)
+    rng = np.random.default_rng(4096)
+    tk = np.where(rng.random((1, 2048, 11)) < 0.9,
+                  rng.integers(0, 5000, (1, 2048, 11)), -1).astype(np.int32)
+    tk[0, :, 4] = 4999                                # every row's hot key
+    keyset_case("hot key in all 2048 rows", tk,
+                rng.permutation(2048).astype(np.int32)[None])
 
     # ---- 7. the TPC-C replay at full size
     lane = tpcc.prepare(device=dev)
@@ -383,6 +395,8 @@ def main() -> int:
         for prevs, _, keyss in lane.stacks:
             keyset.cross_window_deps(prevs, keyss)
 
+    k4_bucket_ms = [median_ms(lambda s=s: ck.keyset_windows_cuda(s[2], s[1]),
+                              reps=7) for s in lane.stacks]
     k4_ms = median_ms(k4_pass, reps=7)
     k4_plain_ms = median_ms(k4_plain_pass, reps=3)
     cross_ms = median_ms(cross_pass, reps=7)
@@ -397,13 +411,15 @@ def main() -> int:
     # are counted for this run's data: one for each valid key slot of a valid
     # row (bucket it by key), one for each pair of rows that share a key (the
     # pair's edge), and one for each edge and each row (the waves, by Kahn's
-    # layering).  The kernel's dense formulation (a compare and an or for
-    # each of the P*P key pairs of every valid pair c, r with rank c < rank
-    # r, then (max wave + 1) iterations of and, popc and add per word) is
-    # logged beside it and is not the bound.
+    # layering).  The kernel's own work, counted by the kernel on this run
+    # (the slots it sorts, the pairs it checks, its wave sweeps times the
+    # slots each sweep walks), is logged beside it and is not the bound.
+    # The kernel indexes only the shared keys: a key one row holds makes no
+    # edge.
     k4_bytes = sum(k.numel() * 4 + r.numel() * 4 + 2 * 4 * k.shape[0]
                    for _, r, k in lane.stacks)
-    k4_ops = k4_dense_ops = 0
+    k4_ops = k4_slots = k4_kept = k4_checks = k4_sweep_slots = 0
+    k4_sweeps = []
     for (_, ranks, keyss), (edges_w, wave_w) in zip(lane.stacks, lane_out):
         n, b, p = keyss.shape
         held = (keyss >= 0) & (ranks >= 0)[:, :, None]
@@ -415,16 +431,24 @@ def main() -> int:
                                return_counts=True)[1]
         k4_ops += int(held.sum()) + int((per_key * (per_key - 1) // 2).sum()) \
             + int(edges_w.sum()) + n * b
-        n_valid = (ranks >= 0).sum(dim=1).to(torch.int64)
-        k4_dense_ops += int((n_valid * (n_valid - 1) // 2).sum()) * p * p * 2
-        k4_dense_ops += int((wave_w.to(torch.int64) + 1).sum()) * b \
-            * ((b + 31) // 32) * 3
+        stats = torch.zeros((n, 3), dtype=torch.int32, device=dev)
+        ck.keyset_windows_cuda(keyss, ranks, stats=stats)
+        stats = stats.to(torch.int64).cpu()
+        k4_slots += n * b * p
+        k4_kept += int(stats[:, 0].sum())
+        k4_checks += int(stats[:, 1].sum())
+        k4_sweep_slots += int((stats[:, 2] * stats[:, 0]).sum())
+        k4_sweeps += stats[:, 2].tolist()
     k4_bound, k4_by = bound(k4_bytes, k4_ops)
-    log(f"[time] K4 keyset windows {k4_ms:.4f} ms over both buckets (plain "
-        f"{k4_plain_ms:.4f} ms, bound {k4_bound:.6f} ms by {k4_by}: "
-        f"{k4_bytes} bytes, {k4_ops} operations of a key-to-rows scan; the "
-        f"kernel's dense formulation does {k4_dense_ops} integer operations, "
-        f"{k4_dense_ops / PEAK_OPS_PER_S * 1e3:.4f} ms at the peak rate)")
+    log(f"[time] K4 keyset windows {k4_ms:.4f} ms over both buckets, "
+        + ", ".join(f"{ms:.4f} ms at K = {s[0].shape[1]} ({s[2].shape[0]} "
+                    f"windows)" for ms, s in zip(k4_bucket_ms, lane.stacks))
+        + f" (plain {k4_plain_ms:.4f} ms, bound {k4_bound:.6f} ms by {k4_by}: "
+        f"{k4_bytes} bytes, {k4_ops} operations of a key-to-rows scan)")
+    log(f"[time] K4's own work: {k4_kept} slots sorted (the shared keys of "
+        f"{k4_slots} key slots), {k4_checks} pair checks, {k4_sweep_slots} "
+        f"sweeps x slots (sweeps a window {min(k4_sweeps)}-{max(k4_sweeps)}, "
+        f"median {statistics.median(k4_sweeps)})")
     log(f"[time] lane: cross_window_deps {cross_ms:.4f} ms, "
         f"tpcc_neworder_resolve_ms {lane_ms:.4f}, "
         f"{lane.txns / (lane_ms / 1e3):.1f} txns/s; host preparation "

@@ -16,8 +16,9 @@ import torch
 from accord_tpu_torch.entry import entry
 from accord_tpu_torch.ops import cuda_kernels, deps_kernel, keyset, wavefront
 from accord_tpu_torch.ops.encode import BatchEncoder, window_to_tensors
+from accord_tpu_torch.tpcc import window_oracle
 from accord_tpu_torch.utils.random_source import RandomSource
-from accord_tpu_torch.workload import build_world, random_world
+from accord_tpu_torch.workload import build_world, keyset_cases, random_world
 
 pytestmark = pytest.mark.cuda
 
@@ -84,16 +85,49 @@ def _keyset_case(rng, w, b, p, domain):
 
 @pytest.mark.parametrize("w,b,domain", [(3, 128, 60), (1, 2048, 300)])
 def test_keyset_windows_kernel_matches_plain(card, w, b, domain):
-    """K4 == its plain version on the tests/test_pallas.py inputs (reps 1
-    and 3) and on one B = 2048 window, whose bit matrix lives in global
-    scratch."""
+    """K4 == its plain version on the tests/test_pallas.py inputs and on one
+    B = 2048 window over 300 keys (runs of ~67 rows, a DAG 784 waves deep),
+    one launch per call."""
     tk, tr = _keyset_case(np.random.default_rng(b), w, b, 11, domain)
     tk, tr = torch.from_numpy(tk).to(card), torch.from_numpy(tr).to(card)
     want = keyset.keyset_windows(tk, tr)
-    for reps in (1, 3):
-        before = cuda_kernels.KEYSET_WINDOWS.launches
-        got = cuda_kernels.keyset_windows_cuda(tk, tr, reps=reps)
-        assert cuda_kernels.KEYSET_WINDOWS.launches == before + 1
-        for g, x in zip(got, want):
-            assert torch.equal(g, x)
+    before = cuda_kernels.KEYSET_WINDOWS.launches
+    got = cuda_kernels.keyset_windows_cuda(tk, tr)
+    assert cuda_kernels.KEYSET_WINDOWS.launches == before + 1
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
     assert int(want[1].max()) > 0
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_keyset_windows_kernel_edge_cases(card, case):
+    """K4 == plain == window_oracle on workload.keyset_cases: tied ranks,
+    keys at 0 and 2**31-1, all rows padded, one key in every row, P = 1,
+    P = 5, and 22,528 key slots at B = 2048, P = 11 and B = 1408, P = 16."""
+    label, tk_np, tr_np = keyset_cases(full_slots=True)[case]
+    tk, tr = torch.from_numpy(tk_np).to(card), torch.from_numpy(tr_np).to(card)
+    stats = torch.zeros((1, 3), dtype=torch.int32, device=card)
+    got = cuda_kernels.keyset_windows_cuda(tk, tr, stats=stats)
+    want = keyset.keyset_windows(tk, tr)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x), label
+    assert window_oracle(tk_np[0], tr_np[0]) == (int(got[0][0]),
+                                                 int(got[1][0])), label
+    assert int(stats[0, 2]) >= 1
+
+
+def test_keyset_windows_kernel_range(card):
+    """P from 1 to 16 and B*P up to 22,528 launch; outside, the wrapper
+    raises with the reason and launches nothing."""
+    for b, p in ((22_528, 1), (1, 16), (1408, 16)):
+        tk = torch.full((1, b, p), 5, dtype=torch.int32, device=card)
+        tr = torch.arange(b, dtype=torch.int32, device=card)[None]
+        edges, wave = cuda_kernels.keyset_windows_cuda(tk, tr)
+        assert int(edges[0]) == b * (b - 1) // 2 and int(wave[0]) == b - 1
+    before = cuda_kernels.KEYSET_WINDOWS.launches
+    for b, p in ((4, 17), (22_529, 1), (1409, 16), (4, 0)):
+        tk = torch.zeros((1, b, p), dtype=torch.int32, device=card)
+        tr = torch.zeros((1, b), dtype=torch.int32, device=card)
+        with pytest.raises(ValueError, match="key slots a window"):
+            cuda_kernels.keyset_windows_cuda(tk, tr)
+    assert cuda_kernels.KEYSET_WINDOWS.launches == before

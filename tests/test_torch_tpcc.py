@@ -18,6 +18,7 @@ import bench
 from accord_tpu.ops.pallas_kernels import keyset_windows_pallas
 from accord_tpu_torch import tpcc
 from accord_tpu_torch.ops import cuda_kernels, keyset
+from accord_tpu_torch.workload import keyset_cases
 
 
 def _t(a):
@@ -49,12 +50,27 @@ def _random_window(rng, b, p, domain):
 @pytest.mark.parametrize("seed", range(3))
 def test_keyset_windows_matches_pallas_interpret(seed):
     tk, tr = _pallas_inputs(seed)
+    got = keyset.keyset_windows(_t(tk), _t(tr))
     for reps in (1, 3):
         want = keyset_windows_pallas(tk, tr, interpret=True, reps=reps)
-        got = keyset.keyset_windows(_t(tk), _t(tr), reps=reps)
         for g, w in zip(got, want):
             assert g.dtype == torch.int32
             assert np.array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_keyset_windows_edge_cases(case):
+    """The windows a sparse key-to-rows kernel can get wrong (tied ranks,
+    keys at 0 and 2**31-1, all rows padded, one key in every row, P = 1,
+    P = 5): plain == Pallas interpret == window_oracle."""
+    label, tk, tr = keyset_cases()[case]
+    got = keyset.keyset_windows(_t(tk), _t(tr))
+    want = keyset_windows_pallas(tk, tr, interpret=True)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        assert np.array_equal(g.numpy(), np.asarray(w)), label
+    assert tpcc.window_oracle(tk[0], tr[0]) == (int(got[0][0]),
+                                                int(got[1][0])), label
 
 
 def test_resolve_window_matches_jax_core():
@@ -162,11 +178,14 @@ def test_keyset_windows_cuda_takes_plain_on_cpu():
     launches nothing; tensors on several devices are refused."""
     tk, tr = _pallas_inputs(0)
     cuda_kernels.reset_launch_counts()
-    got = cuda_kernels.keyset_windows_cuda(_t(tk), _t(tr), reps=2)
+    got = cuda_kernels.keyset_windows_cuda(_t(tk), _t(tr))
     want = keyset.keyset_windows(_t(tk), _t(tr))
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert cuda_kernels.KEYSET_WINDOWS.launches == 0
+    with pytest.raises(ValueError, match="counted by the kernel"):
+        cuda_kernels.keyset_windows_cuda(
+            _t(tk), _t(tr), stats=torch.zeros((3, 3), dtype=torch.int32))
     with pytest.raises(ValueError, match="several devices"):
         cuda_kernels.keyset_windows_cuda(_t(tk), _t(tr).to("meta"))
     with pytest.raises(ValueError, match="unsupported device"):
