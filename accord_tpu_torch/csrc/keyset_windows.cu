@@ -61,6 +61,20 @@
 // slots, in 8*B*P bytes, beside the waves: 180 KB at B*P = 22,528, so one
 // 1024-thread CTA an SM.  Range: 1 <= P <= 16 and B*P <= 22,528 (then
 // B < 2^16 fits the slot's fields).
+//
+// Larger windows (P > 16, or B*P above what one block's shared memory holds,
+// up to kMaxGlobalSlots) take a second kernel, keyset_windows_global_kernel:
+// the same function, one 1024-thread CTA a window, with every array in
+// per-window global scratch (L2-resident at these sizes) and 32-bit fields
+// throughout.  It is written to be right, not fast: it has no hash filter
+// and no P-wide register arrays.  Every valid (rank position, key) pair of
+// the window is one 64-bit word pos << 32 | key; their bitonic sort, run
+// over the scratch with the same network as above, puts each row's keys in
+// order and its repeats side by side, so a block-wide compaction keeps each
+// row's distinct keys (the row lists).  The index is the same pairs as
+// key << 32 | pos, sorted again; the edges (a merge of two row lists up to
+// the run's key) and the waves (32-bit, raised by atomicMax) are those of
+// steps 4 and 5, the predecessor ranges kept in an array of their own.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -460,51 +474,284 @@ keyset_windows_kernel(const int32_t* __restrict__ keys,
   }
 }
 
-bool in_range(int B, int P) {
-  return P >= 1 && P <= kMaxP && B >= 1 && B <= kMaxSlots / P;
+// ---- the large-window path: every array in global scratch ----
+
+constexpr int kMaxGlobalSlots = 1 << 22;
+
+// uint32 words of global scratch one window of the large-window path needs:
+// three u64 arrays of N = B*P (the pairs, then the index; the row lists; the
+// predecessor ranges) and four u32 arrays of B (+1), rounded up to keep the
+// next window's u64 arrays aligned
+__host__ __device__ inline long long global_words(int B, int P) {
+  const long long n = static_cast<long long>(B) * P;
+  return (6 * n + 4LL * B + 2) & ~1LL;
+}
+
+// Keeps the distinct non-sentinel values of the sorted a[0, n) in order,
+// written to out; the whole block takes part.  -> how many were kept.
+// `warp_sums` is kThreads/32 + 1 ints of shared memory.
+__device__ int compact_distinct(const uint64_t* a, int n, uint64_t* out,
+                                int* warp_sums) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int chunk = (n + blockDim.x - 1) / blockDim.x;
+  const int lo = min(n, tid * chunk), hi = min(n, lo + chunk);
+  int mine = 0;
+  for (int i = lo; i < hi; ++i) {
+    const uint64_t v = a[i];
+    mine += v != kSentinel && (i == 0 || a[i - 1] != v);
+  }
+  int incl = mine;  // inclusive scan over the warp, then over the warps
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += y;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int n_warps = blockDim.x >> 5;
+    int s = lane < n_warps ? warp_sums[lane] : 0;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, s, d);
+      if (lane >= d) s += y;
+    }
+    if (lane < n_warps) warp_sums[lane] = s;  // inclusive over the warps
+    if (lane == n_warps - 1) warp_sums[32] = s;
+  }
+  __syncthreads();
+  int o = (warp > 0 ? warp_sums[warp - 1] : 0) + incl - mine;
+  for (int i = lo; i < hi; ++i) {
+    const uint64_t v = a[i];
+    if (v != kSentinel && (i == 0 || a[i - 1] != v)) out[o++] = v;
+  }
+  const int total = warp_sums[32];
+  __syncthreads();
+  return total;
+}
+
+// whether the sorted row lists [i, i_end) and [j, j_end) of `lists` (keys in
+// the low 32 bits) share a key below `key`
+__device__ __forceinline__ bool share_below(const uint64_t* lists, int i,
+                                            int i_end, int j, int j_end,
+                                            uint32_t key) {
+  while (i < i_end && j < j_end) {
+    const uint32_t x = static_cast<uint32_t>(lists[i]);
+    const uint32_t y = static_cast<uint32_t>(lists[j]);
+    if (x >= key || y >= key) return false;
+    if (x == y) return true;
+    if (x < y)
+      ++i;
+    else
+      ++j;
+  }
+  return false;
+}
+
+__global__ void __launch_bounds__(kThreads)
+keyset_windows_global_kernel(const int32_t* __restrict__ keys,
+                             const int32_t* __restrict__ rank, int B, int P,
+                             uint32_t* __restrict__ scratch,
+                             int32_t* __restrict__ edges,
+                             int32_t* __restrict__ max_wave,
+                             int32_t* __restrict__ stats) {
+  __shared__ int warp_sums[kThreads / 32 + 1];
+  __shared__ int counter[3];  // edges, max wave, pair checks
+  const int N = B * P;
+  const int w = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int32_t* wkeys = keys + static_cast<size_t>(w) * N;
+  const int32_t* wrank = rank + static_cast<size_t>(w) * B;
+  uint64_t* a = reinterpret_cast<uint64_t*>(
+      scratch + static_cast<size_t>(w) * global_words(B, P));
+  uint64_t* lists = a + N;    // distinct pos << 32 | key, by position
+  uint64_t* range = a + 2 * static_cast<size_t>(N);  // lo << 32 | hi a slot
+  uint32_t* row_of = reinterpret_cast<uint32_t*>(a + 3 * static_cast<size_t>(N));
+  uint32_t* gstart = row_of + B;
+  uint32_t* first = gstart + B;  // [B + 1]: a position's first list entry
+  uint32_t* wave = first + B + 1;
+  volatile uint32_t* vwave = wave;
+
+  // ---- 1. rank order: position -> row, and its rank group's start
+  for (int r = tid; r < B; r += blockDim.x) {
+    const int32_t rr = wrank[r];
+    a[r] = rr >= 0 ? (static_cast<uint64_t>(rr) << 32 | static_cast<uint32_t>(r))
+                   : kSentinel;
+  }
+  if (tid < 3) counter[tid] = 0;
+  __syncthreads();
+  bitonic_sort(a, B);
+  for (int p = tid; p < B; p += blockDim.x) {
+    const uint64_t v = a[p];
+    row_of[p] = v == kSentinel ? kNoKey : static_cast<uint32_t>(v);
+    gstart[p] = static_cast<uint32_t>(lower_bound(a, 0, p, v & kKeyMask));
+  }
+  __syncthreads();
+
+  // ---- 2. the row lists: each valid row's distinct keys, in order
+  for (int i = tid; i < N; i += blockDim.x) {
+    const int p = i / P;
+    const uint32_t row = row_of[p];
+    const int32_t key = row == kNoKey ? -1 : wkeys[static_cast<size_t>(row) * P + i % P];
+    a[i] = key >= 0 ? (static_cast<uint64_t>(p) << 32 | static_cast<uint32_t>(key))
+                    : kSentinel;
+  }
+  __syncthreads();
+  bitonic_sort(a, N);
+  const int M = compact_distinct(a, N, lists, warp_sums);
+  for (int p = tid; p <= B; p += blockDim.x) {
+    first[p] = static_cast<uint32_t>(
+        lower_bound(lists, 0, M, static_cast<uint64_t>(p) << 32));
+    if (p < B) wave[p] = 0;
+  }
+
+  // ---- 3. the index: each list entry as key << 32 | pos, by key, then rank
+  for (int i = tid; i < M; i += blockDim.x) {
+    const uint64_t v = lists[i];
+    a[i] = (v << 32) | (v >> 32);
+  }
+  __syncthreads();
+  bitonic_sort(a, M);
+
+  // ---- 4. the edges, and each slot's predecessor range
+  int my_edges = 0, my_checks = 0;
+  for (int s = tid; s < M; s += blockDim.x) {
+    const uint64_t v = a[s];
+    range[s] = 0;
+    const uint64_t run = v & kKeyMask;
+    if (s == 0 || (a[s - 1] & kKeyMask) != run) continue;  // first on key
+    const uint32_t pos = static_cast<uint32_t>(v);
+    const int start = lower_bound(a, 0, s, run);
+    const int group = lower_bound(a, start, s, run | gstart[pos]);
+    if (group == start) continue;  // no earlier rank on key
+    const uint32_t key = static_cast<uint32_t>(v >> 32);
+    for (int t = start; t < group; ++t) {
+      const uint32_t q = static_cast<uint32_t>(a[t]);
+      my_edges += !share_below(lists, first[pos], first[pos + 1], first[q],
+                               first[q + 1], key);
+    }
+    my_checks += group - start;
+    const uint32_t below = static_cast<uint32_t>(a[group - 1]);
+    const int lo = lower_bound(a, start, group - 1, run | gstart[below]);
+    range[s] = static_cast<uint64_t>(lo) << 32 | static_cast<uint32_t>(group);
+  }
+  my_edges = __reduce_add_sync(0xffffffffu, my_edges);
+  my_checks = __reduce_add_sync(0xffffffffu, my_checks);
+  if ((tid & 31) == 0) {
+    atomicAdd(&counter[0], my_edges);
+    atomicAdd(&counter[2], my_checks);
+  }
+  __syncthreads();
+
+  // ---- 5. the waves, swept to their fixpoint
+  int sweeps = 0;
+  for (;;) {
+    int changed = 0;
+    for (int s = tid; s < M; s += blockDim.x) {
+      const uint64_t r = range[s];
+      const int lo = static_cast<int>(r >> 32), hi = static_cast<int>(r & 0xffffffffu);
+      if (lo >= hi) continue;
+      uint32_t m = 0;
+      for (int t = lo; t < hi; ++t)
+        m = max(m, vwave[static_cast<uint32_t>(a[t])]);
+      const uint32_t pos = static_cast<uint32_t>(a[s]);
+      if (vwave[pos] < m + 1) {
+        atomicMax(wave + pos, m + 1);
+        changed = 1;
+      }
+    }
+    ++sweeps;
+    if (!__syncthreads_or(changed)) break;
+  }
+
+  int my_max = 0;
+  for (int p = tid; p < B; p += blockDim.x) my_max = max(my_max, static_cast<int>(vwave[p]));
+  my_max = __reduce_max_sync(0xffffffffu, my_max);
+  if ((tid & 31) == 0) atomicMax(&counter[1], my_max);
+  __syncthreads();
+  if (tid == 0) {
+    edges[w] = counter[0];
+    max_wave[w] = counter[1];
+    if (stats != nullptr) {
+      stats[3 * w] = M;
+      stats[3 * w + 1] = counter[2];
+      stats[3 * w + 2] = sweeps;
+    }
+  }
+}
+
+// 1 when a window of B rows of P keys takes the shared-memory kernel, 0 when
+// it takes the large-window kernel, -1 when K4 does not take it
+int choose_path(int B, int P, int optin) {
+  if (P < 1 || B < 1 || static_cast<long long>(B) * P > kMaxGlobalSlots) return -1;
+  if (P <= kMaxP && B <= kMaxSlots / P &&
+      smem_bytes(B, P) <= static_cast<size_t>(optin))
+    return 1;
+  return 0;
+}
+
+cudaError_t smem_optin(int* optin) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                 device);
+  return err;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Checks that K4 takes windows of B rows of P keys (1 <= P <= 16,
-// B*P <= 22,528) and that their slots fit one block's shared memory on the
-// current card.  *scratch_words is the uint32 words of global scratch one
-// window needs (2*B*P), or 0 when the slots do not fit.  Returns
+// Plans K4 for windows of B rows of P keys on the current card: *in_smem is
+// 1 when they take the shared-memory kernel (1 <= P <= 16, B*P <= 22,528 and
+// the slots fit one block's shared memory) and 0 when they take the
+// large-window kernel (any P >= 1, B*P <= 2^22); *scratch_words is the
+// uint32 words of global scratch one window needs.  Returns
 // cudaErrorInvalidValue outside the range, else the cudaError_t of the
 // queries (0 on success).
-int keyset_windows_plan(int P, int B, long long* scratch_words) {
+int keyset_windows_plan(int P, int B, long long* scratch_words, int* in_smem) {
   *scratch_words = 0;
-  if (!in_range(B, P)) return static_cast<int>(cudaErrorInvalidValue);
-  int device = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                                 device);
+  *in_smem = 0;
+  int optin = 0;
+  const cudaError_t err = smem_optin(&optin);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem_bytes(B, P) <= static_cast<size_t>(optin))
-    *scratch_words = 2LL * B * P;
+  const int path = choose_path(B, P, optin);
+  if (path < 0) return static_cast<int>(cudaErrorInvalidValue);
+  *in_smem = path;
+  *scratch_words = path ? 2LL * B * P : global_words(B, P);
   return 0;
 }
 
-// Launches K4 on `stream`, one CTA a window: keys int32 [W, B, P] and rank
-// int32 [W, B] are contiguous device arrays, edges and max_wave int32 [W]
-// the outputs, `scratch` W times keyset_windows_plan's words, and `stats`
-// (may be null) int32 [W, 3]: the slots in each window's index (its rows'
-// shared keys), its pair checks and its wave sweeps.  Returns the cudaError_t of the launch.
+// Launches K4 on `stream`, one CTA a window, on the path keyset_windows_plan
+// names: keys int32 [W, B, P] and rank int32 [W, B] are contiguous device
+// arrays, edges and max_wave int32 [W] the outputs, `scratch` W times
+// keyset_windows_plan's words, and `stats` (may be null) int32 [W, 3]: the
+// slots in each window's index (the shared-memory kernel indexes its rows'
+// shared keys, the large-window kernel every distinct key of a valid row),
+// its pair checks and its wave sweeps.  Returns the cudaError_t of the
+// launch.
 int keyset_windows_launch(const void* keys, const void* rank, int n_windows,
                           int B, int P, void* scratch, void* edges,
                           void* max_wave, void* stats, void* stream) {
-  if (!in_range(B, P) || n_windows <= 0 || scratch == nullptr)
+  int optin = 0;
+  cudaError_t err = smem_optin(&optin);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int path = choose_path(B, P, optin);
+  if (path < 0 || n_windows <= 0 || scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (path == 0) {
+    keyset_windows_global_kernel<<<n_windows, kThreads, 0, s>>>(
+        static_cast<const int32_t*>(keys), static_cast<const int32_t*>(rank), B,
+        P, static_cast<uint32_t*>(scratch), static_cast<int32_t*>(edges),
+        static_cast<int32_t*>(max_wave), static_cast<int32_t*>(stats));
+    return static_cast<int>(cudaGetLastError());
+  }
   const size_t bytes = smem_bytes(B, P);
-  cudaError_t err = cudaFuncSetAttribute(
+  err = cudaFuncSetAttribute(
       keyset_windows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  keyset_windows_kernel<<<n_windows, kThreads, bytes,
-                          static_cast<cudaStream_t>(stream)>>>(
+  keyset_windows_kernel<<<n_windows, kThreads, bytes, s>>>(
       static_cast<const int32_t*>(keys), static_cast<const int32_t*>(rank), B,
       P, static_cast<uint32_t*>(scratch), static_cast<int32_t*>(edges),
       static_cast<int32_t*>(max_wave), static_cast<int32_t*>(stats));

@@ -123,24 +123,25 @@ class Kernel:
 
 DEPS_TILE = Kernel("deps_tile", "deps_tile.cu", {
     "deps_tile_launch": ((_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
-                          _P, _P, _P), _I),
+                          _P, _P, _I, _P), _I),
     "deps_tile_error_string": ((_I,), ctypes.c_char_p),
 })
 WAVEFRONT = Kernel("wavefront", "wavefront.cu", {
-    "wavefront_launch": ((_P, _I, _P, _P, _P), _I),
-    "wavefront_bits_in_smem": ((_I,), _I),
+    "wavefront_launch": ((_P, _P, _I, _P, _P, _P, _P), _I),
+    "wavefront_scratch_words": ((_I,), ctypes.c_longlong),
     "wavefront_error_string": ((_I,), ctypes.c_char_p),
 })
 KEYSET_WINDOWS = Kernel("keyset_windows", "keyset_windows.cu", {
-    "keyset_windows_plan": ((_I, _I, ctypes.POINTER(ctypes.c_longlong)), _I),
+    "keyset_windows_plan": ((_I, _I, ctypes.POINTER(ctypes.c_longlong),
+                             ctypes.POINTER(ctypes.c_int)), _I),
     "keyset_windows_launch": ((_P, _P, _I, _I, _I, _P, _P, _P, _P, _P), _I),
     "keyset_windows_error_string": ((_I,), ctypes.c_char_p),
 })
 KERNELS = (DEPS_TILE, WAVEFRONT, KEYSET_WINDOWS)
-# K4's range (csrc/keyset_windows.cu): keys a row, and key slots a window,
-# whose sorted index lives in one block's shared memory
-KEYSET_MAX_P = 16
-KEYSET_MAX_SLOTS = 22_528
+# K4's range (csrc/keyset_windows.cu): key slots B*P a window, P >= 1.  Up
+# to 16 keys a row and 22,528 slots a window's index lives in one block's
+# shared memory; above, in global scratch (the large-window kernel).
+KEYSET_MAX_SLOTS = 1 << 22
 
 
 def build(kernels: Iterable[Kernel] = KERNELS,
@@ -185,16 +186,13 @@ def _require(t: torch.Tensor, name: str, dtype: torch.dtype,
                          f"{'' if t.is_contiguous() else ' non-contiguous'}")
 
 
-def deps_tile_cuda(touches, entry_key, entry_rank, entry_eat_rank,
-                   entry_status, entry_kind, succ_w, txn_rank,
-                   txn_witness_mask):
-    """K1 on CUDA tensors, ``deps_kernel.deps_tile`` on CPU tensors.
-    -> (dep_mask[B, E] bool, dep_count[B] int32)."""
-    args = (touches, entry_key, entry_rank, entry_eat_rank, entry_status,
-            entry_kind, succ_w, txn_rank, txn_witness_mask)
-    dev = _cuda_device(args)
-    if dev is None:
-        return deps_kernel.deps_tile(*args)
+def _deps_tile_shape(touches, entry_key, entry_rank, entry_eat_rank,
+                       entry_status, entry_kind, succ_w, txn_rank,
+                       txn_witness_mask):
+    """Checks K1's inputs on one CUDA device -> (device, B, E, K)."""
+    dev = _cuda_device((touches, entry_key, entry_rank, entry_eat_rank,
+                        entry_status, entry_kind, succ_w, txn_rank,
+                        txn_witness_mask))
     if touches.dim() != 2:
         raise ValueError(f"touches: expected [B, K], got {tuple(touches.shape)}")
     b, k = touches.shape
@@ -209,24 +207,61 @@ def deps_tile_cuda(touches, entry_key, entry_rank, entry_eat_rank,
     _require(txn_witness_mask, "txn_witness_mask", torch.int32, (b,))
     if (b + 31) // 32 > 65535 or max(e, k) >= 2 ** 31:
         raise ValueError(f"window too large for the deps tile: B={b} E={e} K={k}")
-    dep = torch.empty((b, e), dtype=torch.bool, device=dev)
-    count = torch.zeros(b, dtype=torch.int32, device=dev)
-    if b == 0 or e == 0 or k == 0:
-        return dep, count
-    # touches packed to bits, 32 txn rows per word (see csrc/deps_tile.cu)
-    packed = torch.empty(((b + 31) // 32) * k, dtype=torch.int32, device=dev)
+    return dev, b, e, k
+
+
+def _deps_tile_launch(args, b, e, k, packed, dep, count, phases):
+    (touches, entry_key, entry_rank, entry_eat_rank, entry_status, entry_kind,
+     succ_w, txn_rank, txn_witness_mask) = args
     lib = DEPS_TILE.lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dep.device):
+        stream = torch.cuda.current_stream(dep.device).cuda_stream
         code = lib.deps_tile_launch(
             touches.data_ptr(), k, entry_key.data_ptr(), entry_rank.data_ptr(),
             entry_eat_rank.data_ptr(), entry_status.data_ptr(),
             entry_kind.data_ptr(), succ_w.data_ptr(), txn_rank.data_ptr(),
             txn_witness_mask.data_ptr(), b, e, packed.data_ptr(),
-            dep.data_ptr(), count.data_ptr(), stream)
+            dep.data_ptr(), count.data_ptr(), phases, stream)
     DEPS_TILE.check(code)
     DEPS_TILE.launches += 1
+
+
+def deps_tile_cuda(touches, entry_key, entry_rank, entry_eat_rank,
+                   entry_status, entry_kind, succ_w, txn_rank,
+                   txn_witness_mask):
+    """K1 on CUDA tensors, ``deps_kernel.deps_tile`` on CPU tensors.
+    -> (dep_mask[B, E] bool, dep_count[B] int32)."""
+    args = (touches, entry_key, entry_rank, entry_eat_rank, entry_status,
+            entry_kind, succ_w, txn_rank, txn_witness_mask)
+    if _cuda_device(args) is None:
+        return deps_kernel.deps_tile(*args)
+    dev, b, e, k = _deps_tile_shape(*args)
+    dep = torch.empty((b, e), dtype=torch.bool, device=dev)
+    if b == 0 or e == 0 or k == 0:
+        return dep, torch.zeros(b, dtype=torch.int32, device=dev)
+    count = torch.empty(b, dtype=torch.int32, device=dev)  # zeroed by K1
+    # touches packed to bits, 32 txn rows per word (see csrc/deps_tile.cu)
+    packed = torch.empty(((b + 31) // 32) * k, dtype=torch.int32, device=dev)
+    _deps_tile_launch(args, b, e, k, packed, dep, count, 3)
     return dep, count
+
+
+def deps_tile_phases(*args):
+    """K1's two launches apart, for timing them: -> (pack, tile), two
+    functions of no argument that launch the packing pass (which zeroes the
+    counts) and the tile on buffers of their own.  The tile reads what the
+    last pack wrote; each launch counts as one of K1's.  CUDA tensors only,
+    and a non-empty window."""
+    dev, b, e, k = _deps_tile_shape(*args)
+    if dev is None or 0 in (b, e, k):
+        raise ValueError("deps_tile_phases times K1 on a non-empty window of "
+                         "CUDA tensors")
+    dep = torch.empty((b, e), dtype=torch.bool, device=dev)
+    count = torch.empty(b, dtype=torch.int32, device=dev)
+    packed = torch.empty(((b + 31) // 32) * k, dtype=torch.int32, device=dev)
+    return tuple(
+        (lambda ph=ph: _deps_tile_launch(args, b, e, k, packed, dep, count, ph))
+        for ph in (1, 2))
 
 
 def batched_active_deps_cuda(entry_rank, entry_eat_rank, entry_key,
@@ -248,21 +283,36 @@ def batched_active_deps_cuda(entry_rank, entry_eat_rank, entry_key,
 
 
 def wavefront_bits_in_smem(b: int) -> bool:
-    """Whether K2 keeps a B-row window's packed matrix in shared memory on
-    the current card (otherwise the bit rows live in global scratch)."""
-    return bool(WAVEFRONT.lib().wavefront_bits_in_smem(b))
+    """Whether K2 keeps a B-row window's working set (its packed matrix) in
+    shared memory on the current card (otherwise in global scratch)."""
+    return WAVEFRONT.lib().wavefront_scratch_words(b) == 0
 
 
-def execution_waves_cuda(dep_bb):
+def execution_waves_cuda(dep_bb, txn_rank=None, stats=None):
     """Counterpart of ``execution_waves_pallas``: K2 on a CUDA tensor (every
-    B), ``wavefront.execution_waves`` on a CPU tensor.  -> wave[B] int32."""
-    dev = _cuda_device((dep_bb,))
+    B), ``wavefront.execution_waves`` on a CPU tensor.  -> wave[B] int32.
+
+    `txn_rank` (int32 [B], optional) orders the rows: when every edge points
+    to an earlier row in that order (as ``conflict_edges`` makes them), K2
+    takes its forward pass, otherwise its fixpoint; the result is the same
+    function of `dep_bb` either way, so the CPU path ignores it.  `stats`,
+    an int32 [3] CUDA tensor, receives the kernel's own account: 1 for the
+    forward pass (0 for the fixpoint), 1 when it sorted the ranks, and the
+    steps of its chain (tiles of 32 rows, or fixpoint iterations)."""
+    given = (dep_bb,) + tuple(t for t in (txn_rank, stats) if t is not None)
+    dev = _cuda_device(given)
     if dev is None:
+        if stats is not None:
+            raise ValueError("stats are counted by the kernel: pass CUDA tensors")
         return wavefront.execution_waves(dep_bb)
     if dep_bb.dim() != 2:
         raise ValueError(f"dep_bb: expected [B, B], got {tuple(dep_bb.shape)}")
     b = dep_bb.shape[0]
     _require(dep_bb, "dep_bb", torch.bool, (b, b))
+    if txn_rank is not None:
+        _require(txn_rank, "txn_rank", torch.int32, (b,))
+    if stats is not None:
+        _require(stats, "stats", torch.int32, (3,))
     if b >= 2 ** 31 // max(1, (b + 31) // 32):
         raise ValueError(f"window too large for the wavefront: B={b}")
     wave = torch.empty(b, dtype=torch.int32, device=dev)
@@ -270,25 +320,36 @@ def execution_waves_cuda(dep_bb):
         return wave
     lib = WAVEFRONT.lib()
     with torch.cuda.device(dev):
-        words = 0 if lib.wavefront_bits_in_smem(b) else b * ((b + 31) // 32) + b
+        words = lib.wavefront_scratch_words(b)
         scratch = torch.empty(words, dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.wavefront_launch(dep_bb.data_ptr(), b,
-                                    scratch.data_ptr() if words else None,
-                                    wave.data_ptr(), stream)
+        code = lib.wavefront_launch(
+            dep_bb.data_ptr(), None if txn_rank is None else txn_rank.data_ptr(),
+            b, scratch.data_ptr() if words else None, wave.data_ptr(),
+            None if stats is None else stats.data_ptr(), stream)
     WAVEFRONT.check(code)
     WAVEFRONT.launches += 1
     return wave
 
 
+def keyset_windows_in_smem(b: int, p: int) -> bool:
+    """Whether K4 takes windows of B rows of P keys in its shared-memory
+    kernel on the current card (otherwise in its large-window kernel)."""
+    words, in_smem = ctypes.c_longlong(0), ctypes.c_int(0)
+    KEYSET_WINDOWS.check(KEYSET_WINDOWS.lib().keyset_windows_plan(
+        p, b, ctypes.byref(words), ctypes.byref(in_smem)))
+    return bool(in_smem.value)
+
+
 def keyset_windows_cuda(txn_keys, txn_rank, stats=None):
     """Counterpart of ``keyset_windows_pallas``: K4 on CUDA tensors,
     ``keyset.keyset_windows`` on CPU tensors.  txn_keys [W, B, P] int32
-    (negative = pad; on the card 1 <= P <= 16 and B*P <= 22,528), txn_rank
-    [W, B] int32 (negative = pad) -> (in_window_edges [W] int32, max_wave [W]
+    (negative = pad; on the card P >= 1 and B*P <= 2^22), txn_rank [W, B]
+    int32 (negative = pad) -> (in_window_edges [W] int32, max_wave [W]
     int32).  `stats`, an int32 [W, 3] CUDA tensor, receives the kernel's own
-    counts for each window: the slots of its index (the rows' shared keys),
-    its pair checks and its wave sweeps."""
+    counts for each window: the slots of its index (the shared-memory
+    kernel's are the rows' shared keys, the large-window kernel's every
+    distinct key of a valid row), its pair checks and its wave sweeps."""
     args = (txn_keys, txn_rank) + (() if stats is None else (stats,))
     dev = _cuda_device(args)
     if dev is None:
@@ -303,22 +364,20 @@ def keyset_windows_cuda(txn_keys, txn_rank, stats=None):
     _require(txn_rank, "txn_rank", torch.int32, (w, b))
     if stats is not None:
         _require(stats, "stats", torch.int32, (w, 3))
-    if not (1 <= p <= KEYSET_MAX_P and 1 <= b <= KEYSET_MAX_SLOTS // p):
+    if not (p >= 1 and 1 <= b <= KEYSET_MAX_SLOTS // p):
         raise ValueError(
-            f"K4 takes 1 <= P <= {KEYSET_MAX_P} keys a row and 1 <= B*P <= "
-            f"{KEYSET_MAX_SLOTS} key slots a window (its sorted index lives in "
-            f"one block's shared memory): got B={b} P={p}")
+            f"K4 takes P >= 1 keys a row and 1 <= B*P <= {KEYSET_MAX_SLOTS} "
+            f"key slots a window (the large-window kernel's scratch is 24 "
+            f"bytes a slot): got B={b} P={p}")
     edges = torch.empty(w, dtype=torch.int32, device=dev)
     max_wave = torch.empty(w, dtype=torch.int32, device=dev)
     if w == 0:
         return edges, max_wave
     lib = KEYSET_WINDOWS.lib()
-    words = ctypes.c_longlong(0)
+    words, in_smem = ctypes.c_longlong(0), ctypes.c_int(0)
     with torch.cuda.device(dev):
-        KEYSET_WINDOWS.check(lib.keyset_windows_plan(p, b, ctypes.byref(words)))
-        if words.value == 0:
-            raise ValueError(f"the {b * p} key slots of a window do not fit in "
-                             f"one block's shared memory on this card")
+        KEYSET_WINDOWS.check(lib.keyset_windows_plan(
+            p, b, ctypes.byref(words), ctypes.byref(in_smem)))
         scratch = torch.empty(w * words.value, dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.keyset_windows_launch(

@@ -20,10 +20,11 @@ def resolve_step(entry_rank, entry_eat_rank, entry_key, entry_status,
 
     On CUDA tensors the deps tile and the wavefront run as the hand-written
     kernels and the graph as one f32 matmul; on CPU tensors every step runs
-    its plain PyTorch version."""
+    its plain PyTorch version.  The wavefront is given the ranks, whose
+    order makes the graph's edges point backwards: its forward pass."""
     dep_mask, dep_count = batched_active_deps_cuda(
         entry_rank, entry_eat_rank, entry_key, entry_status, entry_kind,
         txn_rank, txn_witness_mask, touches)
     dep_bb = in_batch_graph(txn_rank, txn_witness_mask, txn_kind, touches)
-    waves = execution_waves_cuda(dep_bb)
+    waves = execution_waves_cuda(dep_bb, txn_rank)
     return dep_mask, dep_count, dep_bb, waves

@@ -126,12 +126,25 @@ def _keyset_window(rng, b, p, domain, pad=0.2):
     return tk.astype(np.int32), rng.permutation(b).astype(np.int32)[None]
 
 
+def large_keyset_window(b, p, seed=0):
+    """One key-set window above K4's shared-memory range -> (label,
+    txn_keys [1, B, P] int32, txn_rank [1, B] int32): keys from 3000
+    values, unsorted and repeated, with pads anywhere; permuted ranks with
+    5% padded rows."""
+    rng = np.random.default_rng(seed + b * 100 + p)
+    tk, tr = _keyset_window(rng, b, p, 3000)
+    tr[0, rng.random(b) < 0.05] = -1
+    return f"B = {b}, P = {p}", tk, tr
+
+
 def keyset_cases(seed=0, full_slots=False):
     """Key-set windows -> [(label, txn_keys [1, B, P] int32, txn_rank [1, B]
     int32)]: tied ranks; keys at 0 and 2**31-1 with pads anywhere; a window
     whose rows are all padded; one key held by every row (B = 64); P = 1;
     P = 5.  With `full_slots`, also B = 2048 at P = 11 and B = 1408 at
-    P = 16, 22,528 key slots each."""
+    P = 16, 22,528 key slots each (the most K4's shared-memory kernel
+    takes), and B = 4096 at P = 11 (45,056 slots) and B = 1200 at P = 20
+    (24,000 slots), which take its large-window kernel."""
     rng = np.random.default_rng(seed)
     cases = []
     tk, _ = _keyset_window(rng, 96, 11, 40)
@@ -159,4 +172,5 @@ def keyset_cases(seed=0, full_slots=False):
             tk, tr = _keyset_window(rng, b, p, domain)
             tr[0, rng.random(b) < 0.05] = -1
             cases.append((f"B = {b}, P = {p}", tk, tr))
+        cases += [large_keyset_window(4096, 11), large_keyset_window(1200, 20)]
     return cases

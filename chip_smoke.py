@@ -10,24 +10,33 @@ Phases; any failure raises, exits non-zero and prints no result lines:
  2. K1, the deps tile: kernel == plain torch on the card for three seeds of
     a small random world and for a world with K > 16384 (also cut to an E
     and a B that are not multiples of 4);
- 3. K2, the wavefront: kernel == plain torch == waves_oracle on a random 8%
-    DAG, a 1024-deep chain, and B = 1152 and 2048 (the 2048 window's bit
-    matrix does not fit in shared memory, so it takes the global-scratch path),
-    and on B = 1001 (not a multiple of 4: the byte-wise packing);
+ 3. K2, the wavefront: kernel == plain torch == waves_oracle on random DAGs
+    over permuted ranks at B = 512 (8%), 1001, 1152 and 2048, and on chains
+    1024, 1152 and 2048 deep (the 2048 window's working set does not fit in
+    shared memory, so it takes the global-scratch path; B = 1001 is not a
+    multiple of 32: the ballot packing), each once with its ranks (K2 must
+    take its forward pass) and once without (the forward pass where the
+    rows are in triangular order, else the fixpoint, as K2 reports it), and
+    on a DAG with a cycle (the fixpoint; rows on it keep -1);
  4. the main path at full size: workload.build_world() (seed 42: 1024 keys,
     65,536-txn conflict index, 512-txn window) encoded and resolved by
     entry()'s resolve_step on cuda, with the launch counts zeroed just
     before and read just after; deps == the scalar oracle, edge count == the
-    scalar scan's, every wave >= 0, both kernels launched;
+    scalar scan's, every wave >= 0, both kernels launched, and K2 takes its
+    forward pass on the window;
  5. timing at the main path's shapes: each kernel's median ms (CUDA events),
-    its bound, its plain version's ms, and the window's edges/s;
+    its bound, its plain version's ms, K1's two launches apart (the packing
+    pass, the tile) beside a memset of its output, K2's forward pass and
+    fixpoint on phase 3's B = 512
+    random DAG, the steps of resolve_step, and the window's edges/s;
  6. K4, the key-set windows: kernel == plain torch == the scalar
     window_oracle on the tests/test_pallas.py inputs (W=3, B=128, P=11) for
     three seeds, on a B = 2048 window over a small key domain (a DAG 784
     waves deep), on B = 1000 with permuted ranks, on workload.keyset_cases
     (tied ranks, keys at 0 and 2**31-1, all rows padded, one key in every
-    row, P = 1, P = 5, and 22,528 key slots at B = 2048, P = 11 and at
-    B = 1408, P = 16) and on one hot key held by all 2048 rows;
+    row, P = 1, P = 5, 22,528 key slots at B = 2048, P = 11 and at
+    B = 1408, P = 16, and the large-window kernel's B = 4096, P = 11 and
+    B = 1200, P = 20) and on one hot key held by all 2048 rows;
  7. the TPC-C replay at full size (1M txns, 64 warehouses, 489 windows of
     2048): tpcc.prepare, then tpcc.resolve with the launch counts zeroed
     just before and read just after; the counts == bench_tpcc's on the CPU
@@ -38,7 +47,9 @@ Phases; any failure raises, exits non-zero and prints no result lines:
     run's data), the kernel's own work (slots sorted, pair checks, sweeps x
     slots, counted by the kernel) and its plain ms, the cross-window
     gather's ms, the whole pass's ms, txns/s and the host preparation
-    seconds.
+    seconds; then the same replay cut into windows of 4096 (K4's
+    large-window kernel): K4 == plain on every window, window_oracle on
+    three, and K4's ms over the pass.
 The tolerance everywhere is exact equality: every output is integer or bool.
 
 Then, on lines of their own: the card's name and power limit (nvidia-smi),
@@ -170,39 +181,68 @@ def main() -> int:
                               seed=11)
     deps_case("K=16500 world", cfks, batch, ragged=True)
 
-    # ---- 3. K2 == plain == oracle
-    def waves_case(label, dep_np, depth=None):
-        dep = torch.from_numpy(dep_np).to(dev)
-        w_k = ck.execution_waves_cuda(dep)
+    # ---- 3. K2 == plain == oracle, and the path it takes
+    def waves_run(label, dep, rank, want_forward):
+        stats = torch.zeros(3, dtype=torch.int32, device=dev)
+        w_k = ck.execution_waves_cuda(dep, rank, stats=stats)
         w_p = wavefront.execution_waves(dep)
         torch.cuda.synchronize()
         e = max_abs_err(w_k, w_p)
         err["wavefront"] = max(err["wavefront"], e)
         check(e == 0, f"K2 != plain on {label}")
+        forward, sorted_ranks, steps = stats.tolist()
+        check(forward == want_forward,
+              f"K2 took its {'forward pass' if forward else 'fixpoint'} on "
+              f"{label}")
+        return w_k, f"{'forward' if forward else 'fixpoint'} " \
+            f"{'(ranks sorted) ' if sorted_ranks else ''}{steps} steps"
+
+    def waves_case(label, dep_np, rank_np, depth=None):
+        """With the ranks K2 must take its forward pass; without them, its
+        forward pass exactly when the rows are in triangular order."""
+        dep = torch.from_numpy(dep_np).to(dev)
+        w_r, how_r = waves_run(f"{label} with ranks", dep,
+                               torch.from_numpy(rank_np).to(dev), 1)
+        w_n, how_n = waves_run(f"{label} without ranks", dep, None,
+                               int(not np.triu(dep_np).any()))
         rows = [list(np.nonzero(r)[0]) for r in dep_np]
-        check(w_k.cpu().tolist() == wavefront.waves_oracle(rows),
+        check(w_r.cpu().tolist() == wavefront.waves_oracle(rows),
               f"K2 != waves_oracle on {label}")
-        check(depth is None or int(w_k.max()) == depth,
+        check(depth is None or int(w_r.max()) == depth,
               f"K2 max wave on {label} is not {depth}")
         mode = "shared" if ck.wavefront_bits_in_smem(dep_np.shape[0]) \
             else "global"
-        log(f"[K2] {label}: B={dep_np.shape[0]} bits in {mode} memory, "
-            f"max wave {int(w_k.max())} == plain == oracle")
+        log(f"[K2] {label}: B={dep_np.shape[0]} working set in {mode} memory, "
+            f"max wave {int(w_r.max())} == plain == oracle; with ranks "
+            f"{how_r}, without {how_n}")
 
     rng = np.random.default_rng(600)
+    random_dags = {}
     for n, p in ((512, 0.08), (1001, 0.03), (1152, 0.02), (2048, 0.01)):
-        rank = rng.permutation(n)
+        rank = rng.permutation(n).astype(np.int32)
         dag = (rng.random((n, n)) < p) & (rank[None, :] < rank[:, None])
-        waves_case(f"random {p:.0%} DAG", dag)
+        random_dags[n] = (dag, rank)
+        waves_case(f"random {p:.0%} DAG", dag, rank)
     n = 1024
     chain = np.zeros((n, n), bool)
     chain[np.arange(1, n), np.arange(n - 1)] = True
     chain |= (rng.random((n, n)) < 0.02) & np.tri(n, n, -1, dtype=bool)
-    waves_case("1024-deep chain", chain, depth=n - 1)
+    waves_case("1024-deep chain", chain, np.arange(n, dtype=np.int32),
+               depth=n - 1)
     for n in (1152, 2048):
         dag = np.zeros((n, n), bool)
         dag[np.arange(1, n), np.arange(n - 1)] = True
-        waves_case(f"{n}-deep chain", dag, depth=n - 1)
+        waves_case(f"{n}-deep chain", dag, np.arange(n, dtype=np.int32),
+                   depth=n - 1)
+    dag, rank = random_dags[512]
+    cyc = dag.copy()
+    cyc[np.argmin(rank), np.argmax(rank)] = True
+    w_c, how_c = waves_run("random DAG with a cycle", torch.from_numpy(cyc).to(dev),
+                           torch.from_numpy(rank).to(dev), 0)
+    on_cycle = int((w_c == -1).sum())
+    check(on_cycle > 0, "no row of the cycle case kept -1")
+    log(f"[K2] random DAG with a cycle: B=512, {on_cycle} rows on or behind "
+        f"the cycle keep -1 == plain; {how_c}")
 
     # ---- 4. the main path at full size
     fn, small_args = entry()
@@ -236,9 +276,10 @@ def main() -> int:
     check(torch.equal(waves, wavefront.execution_waves(dep_bb)),
           "main-path waves != plain")
     max_wave = int(waves.max())
+    _, how = waves_run("the main window", dep_bb, args[5], 1)
     log(f"[main] deps == scalar oracle; edges {edges} == scalar; "
         f"in-window edges {int(dep_bb.sum())}; max wave {max_wave}; "
-        f"launches {launches}")
+        f"launches {launches}; K2 with the window's ranks: {how}")
 
     # ---- 5. timing at the main path's shapes
     er, eer, ek, es, ekd, tr, twm, tk, touches = args
@@ -249,18 +290,33 @@ def main() -> int:
     err["deps_tile"] = max(err["deps_tile"], max_abs_err(m_k, m_p),
                            max_abs_err(c_k, c_p))
     check(err["deps_tile"] == 0, "K1 != plain at full size")
-    w_k = ck.execution_waves_cuda(dep_bb)
+    w_k = ck.execution_waves_cuda(dep_bb, tr)
     err["wavefront"] = max(err["wavefront"],
                            max_abs_err(w_k, wavefront.execution_waves(dep_bb)))
     check(err["wavefront"] == 0, "K2 != plain at full size")
 
     k1_ms = median_ms(lambda: ck.deps_tile_cuda(*k1_args), reps=15,
                       per_batch=10)
+    k1_pack, k1_tile = ck.deps_tile_phases(*k1_args)
+    k1_pack()
+    k1_pack_ms = median_ms(k1_pack, reps=15, per_batch=10)
+    k1_tile_ms = median_ms(k1_tile, reps=15, per_batch=10)
     k1_plain_ms = median_ms(lambda: deps_kernel.deps_tile(*k1_args), reps=7)
-    k2_ms = median_ms(lambda: ck.execution_waves_cuda(dep_bb), reps=15,
+    # a yardstick for K1's write stream (not its function): zeroing its
+    # [B, E] output
+    memset_ms = median_ms(lambda: m_k.zero_(), reps=15, per_batch=10)
+    # as resolve_step calls it: with the window's ranks
+    k2_ms = median_ms(lambda: ck.execution_waves_cuda(dep_bb, tr), reps=15,
                       per_batch=10)
     k2_plain_ms = median_ms(lambda: wavefront.execution_waves(dep_bb),
                             reps=7)
+    # phase 3's B = 512 random DAG: rows in permuted rank order
+    dag = torch.from_numpy(random_dags[512][0]).to(dev)
+    dag_rank = torch.from_numpy(random_dags[512][1]).to(dev)
+    k2_dag_forward_ms = median_ms(
+        lambda: ck.execution_waves_cuda(dag, dag_rank), reps=15, per_batch=10)
+    k2_dag_fixpoint_ms = median_ms(
+        lambda: ck.execution_waves_cuda(dag), reps=15, per_batch=10)
     step_ms = median_ms(lambda: fn(*args), reps=7)
     # the rest of the step, which runs as plain torch on the card
     succ_ms = median_ms(
@@ -277,10 +333,11 @@ def main() -> int:
     # and mask, four ands)
     k1_bytes = b * k + 6 * 4 * e + 2 * 4 * b + b * e + 4 * b
     k1_ops = 10 * b * e
-    # K2 reads the B*B matrix once and writes int32 [B]; this run's data
-    # needs max_wave + 1 iterations of (and, popc, add) per 32-bit word
-    k2_bytes = b * b + 4 * b
-    k2_ops = (max_wave + 1) * b * ((b + 31) // 32) * 3
+    # K2 reads the B*B matrix and the int32 [B] ranks once and writes int32
+    # [B]; the longest path over this run's DAG needs one max a row and one
+    # an edge
+    k2_bytes = b * b + 4 * b + 4 * b
+    k2_ops = b + int(dep_bb.sum())
 
     def bound(nbytes, ops):
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -290,9 +347,13 @@ def main() -> int:
     k1_bound, k1_by = bound(k1_bytes, k1_ops)
     k2_bound, k2_by = bound(k2_bytes, k2_ops)
     log(f"[time] K1 deps tile  {k1_ms:.4f} ms (plain {k1_plain_ms:.4f} ms, "
-        f"bound {k1_bound:.4f} ms by {k1_by})")
+        f"bound {k1_bound:.4f} ms by {k1_by}); apart: packing pass "
+        f"{k1_pack_ms:.4f} ms, tile {k1_tile_ms:.4f} ms; a memset of its "
+        f"output {memset_ms:.4f} ms")
     log(f"[time] K2 wavefront  {k2_ms:.4f} ms (plain {k2_plain_ms:.4f} ms, "
-        f"bound {k2_bound:.4f} ms by {k2_by})")
+        f"bound {k2_bound:.6f} ms by {k2_by}); phase 3's B = 512 random "
+        f"DAG: forward pass with its ranks {k2_dag_forward_ms:.4f} ms, "
+        f"fixpoint without them {k2_dag_fixpoint_ms:.4f} ms")
     log(f"[time] plain torch in the step: succ_w {succ_ms:.4f} ms, "
         f"in_batch_graph {graph_ms:.4f} ms")
     log(f"[time] resolve_step {step_ms:.4f} ms for {edges} edges: "
@@ -454,6 +515,29 @@ def main() -> int:
         f"{lane.txns / (lane_ms / 1e3):.1f} txns/s; host preparation "
         f"{lane.prep_seconds:.2f} s, of which host-to-device {h2d_ms:.4f} ms; "
         f"no single torch call computes K4, so its library_ms is null")
+
+    # K4's large-window kernel on the same replay cut into windows of 4096
+    lane4k = tpcc.prepare(window=4096, device=dev)
+    for _, ranks, keyss in lane4k.stacks:
+        check(not ck.keyset_windows_in_smem(keyss.shape[1], keyss.shape[2]),
+              "the 4096-row windows took K4's shared-memory kernel")
+        keyset_vs_plain(f"4096-row lane bucket {tuple(keyss.shape)}", keyss,
+                        ranks)
+    n4k = len(lane4k.windows)
+    for wi in (0, n4k // 2, n4k - 1):
+        _, rank, keys = lane4k.windows[wi]
+        e_k, w_k = ck.keyset_windows_cuda(
+            torch.from_numpy(keys[None]).to(dev),
+            torch.from_numpy(rank[None]).to(dev))
+        check(tpcc.window_oracle(keys, rank) == (int(e_k[0]), int(w_k[0])),
+              f"K4 != window_oracle on 4096-row lane window {wi}")
+    k4_4k_ms = median_ms(
+        lambda: [ck.keyset_windows_cuda(k, r) for _, r, k in lane4k.stacks],
+        reps=5)
+    log(f"[time] K4 large-window kernel over the replay in {n4k} windows of "
+        f"4096 (P = 11), buckets {[tuple(s[2].shape) for s in lane4k.stacks]}: "
+        f"{k4_4k_ms:.4f} ms; == plain on every window, window_oracle on "
+        f"windows 0, {n4k // 2}, {n4k - 1}")
 
     kernels = [
         {"name": "deps_tile", "route": "cuda",

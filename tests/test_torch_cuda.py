@@ -18,7 +18,8 @@ from accord_tpu_torch.ops import cuda_kernels, deps_kernel, keyset, wavefront
 from accord_tpu_torch.ops.encode import BatchEncoder, window_to_tensors
 from accord_tpu_torch.tpcc import window_oracle
 from accord_tpu_torch.utils.random_source import RandomSource
-from accord_tpu_torch.workload import build_world, keyset_cases, random_world
+from accord_tpu_torch.workload import (build_world, keyset_cases,
+                                       large_keyset_window, random_world)
 
 pytestmark = pytest.mark.cuda
 
@@ -47,6 +48,91 @@ def test_deps_tile_kernel_matches_plain(card):
         want_mask, want_count = deps_kernel.deps_tile(*args)
         assert torch.equal(mask, want_mask)
         assert torch.equal(count, want_count)
+
+
+@pytest.mark.parametrize("cut_e,cut_b", [(3, 0), (8, 5), (13, 31)])
+def test_deps_tile_kernel_ragged_matches_plain(card, cut_e, cut_b):
+    """E not a multiple of 16 (rows not 16-byte aligned: the byte-wise
+    stores) and B not a multiple of 32 (a partial row group)."""
+    cfks, batch = random_world(RandomSource(820 + cut_e), n_keys=30,
+                               n_existing=300, n_batch=150)
+    enc = BatchEncoder(cfks, batch)
+    er, eer, ek, es, ekd, tr, twm, _, touches = window_to_tensors(
+        enc.state, enc.dbatch, card)
+    succ = deps_kernel.successor_write_eat(er, eer, ek, es, ekd)
+    e, b = er.shape[0] - cut_e, tr.shape[0] - cut_b
+    assert e % 16 != 0
+    args = (touches[:b].contiguous(),) + tuple(
+        a[:e].contiguous() for a in (ek, er, eer, es, ekd, succ)) \
+        + (tr[:b].contiguous(), twm[:b].contiguous())
+    mask, count = cuda_kernels.deps_tile_cuda(*args)
+    want_mask, want_count = deps_kernel.deps_tile(*args)
+    assert torch.equal(mask, want_mask)
+    assert torch.equal(count, want_count)
+    assert int(count.sum()) > 0
+
+
+def _random_dag(rng, n, p):
+    rank = rng.permutation(n).astype(np.int32)
+    return (rng.random((n, n)) < p) & (rank[None, :] < rank[:, None]), rank
+
+
+def _wave_case(name):
+    """-> (dep [B, B] bool, txn_rank [B] int32 or None, the path K2 must
+    take: 1 forward, 0 fixpoint, and whether it sorts the ranks)."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name == "triangular with txn_rank":
+        n = 512
+        rank = np.arange(n, dtype=np.int32)
+        rank[rng.random(n) < 0.2] += 1            # ties, still ascending
+        dep = (rng.random((n, n)) < 0.08) & (rank[None, :] < rank[:, None])
+        return dep, rank, 1, 0
+    if name == "permuted ranks":
+        dep, rank = _random_dag(rng, 512, 0.08)
+        rank[rng.random(512) < 0.1] = -1          # padded rows, no edges
+        dep &= (rank >= 0)[None, :] & (rank >= 0)[:, None]
+        return dep, rank, 1, 1
+    if name == "permuted rows without txn_rank":
+        dep, _ = _random_dag(rng, 512, 0.08)
+        return dep, None, 0, 0
+    if name == "cycle":
+        dep, rank = _random_dag(rng, 300, 0.05)
+        dep[np.argmin(rank), np.argmax(rank)] = True  # closes many cycles
+        return dep, rank, 0, 1
+    if name == "B = 1":
+        return np.zeros((1, 1), bool), np.zeros(1, np.int32), 1, 0
+    if name == "B = 1, self loop":
+        return np.ones((1, 1), bool), np.zeros(1, np.int32), 0, 0
+    if name == "B = 2048":
+        dep, rank = _random_dag(rng, 2048, 0.01)
+        return dep, rank, 1, 1
+    if name == "B = 1001 chain":
+        n = 1001
+        dep = np.zeros((n, n), bool)
+        dep[np.arange(1, n), np.arange(n - 1)] = True
+        return dep, np.arange(n, dtype=np.int32), 1, 0
+    assert name == "empty DAG"
+    return np.zeros((700, 700), bool), None, 1, 0
+
+
+@pytest.mark.parametrize("name", [
+    "triangular with txn_rank", "permuted ranks",
+    "permuted rows without txn_rank", "cycle", "B = 1", "B = 1, self loop",
+    "B = 2048", "B = 1001 chain", "empty DAG"])
+def test_wavefront_kernel_paths(card, name):
+    """K2 == plain on both of its paths, and takes the path the input calls
+    for: the forward pass when the rows in rank order make the matrix
+    strictly lower triangular, the fixpoint otherwise (cycles keep -1)."""
+    dep_np, rank_np, forward, sorted_ranks = _wave_case(name)
+    dep = torch.from_numpy(dep_np).to(card)
+    rank = None if rank_np is None else torch.from_numpy(rank_np).to(card)
+    stats = torch.zeros(3, dtype=torch.int32, device=card)
+    got = cuda_kernels.execution_waves_cuda(dep, rank, stats=stats)
+    want = wavefront.execution_waves(dep)
+    assert torch.equal(got, want)
+    assert stats.tolist()[:2] == [forward, sorted_ranks]
+    if name == "cycle":
+        assert int((got == -1).sum()) > 0
 
 
 @pytest.mark.parametrize("n,p", [(512, 0.08), (1152, 0.02), (2048, 0.01)])
@@ -99,11 +185,12 @@ def test_keyset_windows_kernel_matches_plain(card, w, b, domain):
     assert int(want[1].max()) > 0
 
 
-@pytest.mark.parametrize("case", range(8))
+@pytest.mark.parametrize("case", range(10))
 def test_keyset_windows_kernel_edge_cases(card, case):
     """K4 == plain == window_oracle on workload.keyset_cases: tied ranks,
     keys at 0 and 2**31-1, all rows padded, one key in every row, P = 1,
-    P = 5, and 22,528 key slots at B = 2048, P = 11 and B = 1408, P = 16."""
+    P = 5, 22,528 key slots at B = 2048, P = 11 and B = 1408, P = 16, and
+    the large-window kernel's B = 4096, P = 11 and B = 1200, P = 20."""
     label, tk_np, tr_np = keyset_cases(full_slots=True)[case]
     tk, tr = torch.from_numpy(tk_np).to(card), torch.from_numpy(tr_np).to(card)
     stats = torch.zeros((1, 3), dtype=torch.int32, device=card)
@@ -117,17 +204,41 @@ def test_keyset_windows_kernel_edge_cases(card, case):
 
 
 def test_keyset_windows_kernel_range(card):
-    """P from 1 to 16 and B*P up to 22,528 launch; outside, the wrapper
-    raises with the reason and launches nothing."""
-    for b, p in ((22_528, 1), (1, 16), (1408, 16)):
+    """Every P >= 1 and B*P up to 2^22 launch, in the shared-memory kernel up
+    to P = 16 and 22,528 key slots and in the large-window kernel above;
+    outside, the wrapper raises with the reason and launches nothing."""
+    for b, p, in_smem in ((22_528, 1, True), (1, 16, True), (1408, 16, True),
+                          (4, 17, False), (22_529, 1, False),
+                          (1409, 16, False), (2, 2 ** 21, False)):
+        assert cuda_kernels.keyset_windows_in_smem(b, p) == in_smem
         tk = torch.full((1, b, p), 5, dtype=torch.int32, device=card)
         tr = torch.arange(b, dtype=torch.int32, device=card)[None]
         edges, wave = cuda_kernels.keyset_windows_cuda(tk, tr)
         assert int(edges[0]) == b * (b - 1) // 2 and int(wave[0]) == b - 1
     before = cuda_kernels.KEYSET_WINDOWS.launches
-    for b, p in ((4, 17), (22_529, 1), (1409, 16), (4, 0)):
+    for b, p in ((2 ** 22 + 1, 1), (2, 2 ** 21 + 1), (4, 0)):
         tk = torch.zeros((1, b, p), dtype=torch.int32, device=card)
         tr = torch.zeros((1, b), dtype=torch.int32, device=card)
         with pytest.raises(ValueError, match="key slots a window"):
             cuda_kernels.keyset_windows_cuda(tk, tr)
     assert cuda_kernels.KEYSET_WINDOWS.launches == before
+
+
+@pytest.mark.parametrize("b,p", [(4096, 11), (1200, 20)])
+def test_keyset_windows_large_windows(card, b, p):
+    """Windows above the shared-memory range launch K4's large-window
+    kernel, W = 3 at a time, == plain == window_oracle."""
+    windows = [large_keyset_window(b, p, seed=s) for s in range(3)]
+    tk_np = np.concatenate([w[1] for w in windows])
+    tr_np = np.concatenate([w[2] for w in windows])
+    tk, tr = torch.from_numpy(tk_np).to(card), torch.from_numpy(tr_np).to(card)
+    before = cuda_kernels.KEYSET_WINDOWS.launches
+    got = cuda_kernels.keyset_windows_cuda(tk, tr)
+    assert cuda_kernels.KEYSET_WINDOWS.launches == before + 1
+    assert not cuda_kernels.keyset_windows_in_smem(b, p)
+    want = keyset.keyset_windows(tk, tr)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    for wi in range(3):
+        assert window_oracle(tk_np[wi], tr_np[wi]) == (int(got[0][wi]),
+                                                       int(got[1][wi]))

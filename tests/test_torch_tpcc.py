@@ -18,7 +18,7 @@ import bench
 from accord_tpu.ops.pallas_kernels import keyset_windows_pallas
 from accord_tpu_torch import tpcc
 from accord_tpu_torch.ops import cuda_kernels, keyset
-from accord_tpu_torch.workload import keyset_cases
+from accord_tpu_torch.workload import keyset_cases, large_keyset_window
 
 
 def _t(a):
@@ -71,6 +71,30 @@ def test_keyset_windows_edge_cases(case):
         assert np.array_equal(g.numpy(), np.asarray(w)), label
     assert tpcc.window_oracle(tk[0], tr[0]) == (int(got[0][0]),
                                                 int(got[1][0])), label
+
+
+@pytest.fixture
+def one_thread():
+    """Dense [B, B] products on one thread, so a large case does not crowd
+    the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def test_keyset_windows_large_window_matches_pallas_interpret(one_thread):
+    """A window above K4's shared-memory range (B = 1200, P = 20: 24,000 key
+    slots, 20 keys a row), which the card runs in K4's large-window kernel:
+    plain == Pallas interpret == window_oracle."""
+    label, tk, tr = large_keyset_window(1200, 20)
+    got = keyset.keyset_windows(_t(tk), _t(tr))
+    want = keyset_windows_pallas(tk, tr, interpret=True)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w)), label
+    assert tpcc.window_oracle(tk[0], tr[0]) == (int(got[0][0]),
+                                                int(got[1][0])), label
+    assert int(got[0][0]) > 0 and int(got[1][0]) > 1
 
 
 def test_resolve_window_matches_jax_core():
