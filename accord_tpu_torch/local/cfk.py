@@ -5,13 +5,15 @@ Reference: accord/local/CommandsForKey.java:132 (design doc :74-131, TxnInfo
 scan :614-650, incremental update with missing maintenance :652-1000).
 
 A copy of the pure-Python tier of ``accord_tpu/local/cfk.py``, cut to what
-``update`` (with ``dep_ids``), ``as_arrays``, ``max_committed_write_before``
-and ``map_reduce_active`` need.  Not carried: the native C++ tier (pinned
-identical to this one in the JAX package), the recovery queries
-(mapReduceFull and the omission covers, with the per-entry write deps they
-read), the Unmanaged wait registry and its block-point heaps, and the
-version counters the device store's snapshots read.  Nothing in this package
-registers a wait, so ``update`` returns nothing.
+``update`` (with ``dep_ids``), ``as_arrays``, ``max_committed_write_before``,
+``map_reduce_active`` and the recovery queries' raw enumeration
+(``map_reduce_full`` and the four BeginRecovery scans) need.  Not carried:
+the native C++ tier (pinned identical to this one in the JAX package), the
+elision classifier of the recovery scans (``omission_covers``,
+``classify_omissions``, with the per-entry write deps they read), the
+Unmanaged wait registry and its block-point heaps, and the version counters
+the device store's snapshots read.  Nothing in this package registers a
+wait, so ``update`` returns nothing.
 
 Representation (parallel arrays, also the device encoder's input):
 
@@ -33,7 +35,8 @@ from bisect import bisect_left, insort
 from typing import Callable, List, Optional, Sequence, Tuple
 
 from accord_tpu_torch.primitives.keys import Key
-from accord_tpu_torch.primitives.timestamp import (KindSet, Timestamp, TxnId)
+from accord_tpu_torch.primitives.timestamp import (_KIND_MASK, _KIND_SHIFT,
+                                                   KindSet, Timestamp, TxnId)
 
 
 class InternalStatus(enum.IntEnum):
@@ -63,6 +66,24 @@ class InternalStatus(enum.IntEnum):
         (InternalStatus.hasInfo): these are the entries whose missing[]
         answers recovery's dep-membership tests."""
         return InternalStatus.ACCEPTED <= self <= InternalStatus.APPLIED
+
+
+class TestStartedAt(enum.Enum):
+    STARTED_BEFORE = "STARTED_BEFORE"
+    STARTED_AFTER = "STARTED_AFTER"
+    ANY = "ANY"
+
+
+class TestDep(enum.Enum):
+    WITH = "WITH"
+    WITHOUT = "WITHOUT"
+    ANY_DEPS = "ANY_DEPS"
+
+
+class TestStatus(enum.Enum):
+    ANY_STATUS = "ANY_STATUS"
+    IS_PROPOSED = "IS_PROPOSED"   # ACCEPTED or COMMITTED
+    IS_STABLE = "IS_STABLE"       # STABLE..APPLIED
 
 
 class TxnInfo:
@@ -314,6 +335,106 @@ class CommandsForKey:
                     and self._eat_of(i) < bound:
                 continue  # transitively covered by the bound write
             fn(t)
+
+    # ------------- recovery queries (mapReduceFull, CommandsForKey.java:553) --
+    def map_reduce_full(self, test_txn_id: TxnId, kinds: KindSet,
+                        test_started_at: TestStartedAt, test_dep: TestDep,
+                        test_status: TestStatus,
+                        fn: Callable[[TxnId, Timestamp], None]) -> None:
+        """The recovery query family. Dep tests consult the missing[]
+        divergence encoding: an entry with known deps (has_info) and
+        executeAt > test_txn_id has test_txn_id as a dependency iff it is
+        NOT listed in its missing collection (:598-608)."""
+        pos = self._pos(test_txn_id)
+        is_known = pos >= 0
+        if not is_known and test_dep == TestDep.WITH:
+            return
+        insert_pos = pos if is_known else -pos - 1
+        if test_started_at == TestStartedAt.STARTED_BEFORE:
+            start, end = 0, insert_pos
+        elif test_started_at == TestStartedAt.STARTED_AFTER:
+            start, end = insert_pos, len(self._ids)
+        else:
+            start, end = 0, len(self._ids)
+
+        kmask = kinds.mask()
+        for i in range(start, end):
+            t = self._ids[i]
+            if t == test_txn_id \
+                    or not (kmask >> ((t.flags & _KIND_MASK)
+                                      >> _KIND_SHIFT)) & 1:
+                continue
+            st = self._status[i]
+            if test_status == TestStatus.IS_PROPOSED:
+                if st not in (InternalStatus.ACCEPTED,
+                              InternalStatus.COMMITTED):
+                    continue
+            elif test_status == TestStatus.IS_STABLE:
+                if not (InternalStatus.STABLE <= st
+                        <= InternalStatus.APPLIED):
+                    continue
+            else:
+                if st == InternalStatus.TRANSITIVELY_KNOWN:
+                    continue
+            execute_at = self._eat_of(i)
+            if test_dep != TestDep.ANY_DEPS:
+                if not st.has_info:
+                    continue
+                if execute_at <= test_txn_id:
+                    continue
+                m = self._missing[i]
+                k = bisect_left(m, test_txn_id)
+                has_as_dep = not (k < len(m) and m[k] == test_txn_id)
+                if has_as_dep != (test_dep == TestDep.WITH):
+                    continue
+            fn(t, execute_at)
+
+    # The four BeginRecovery predicates (BeginRecovery.java:329-380), as the
+    # raw candidate enumeration: the JAX package's *_ids(raw=True).  The
+    # elision classifier that filters the first two is a host post-step not
+    # carried here; the batched recovery scans (ops/recovery_kernel.py)
+    # compute exactly these raw candidates.
+    def started_after_without_witnessing_ids(self, txn_id: TxnId
+                                             ) -> List[TxnId]:
+        found: List[TxnId] = []
+        self.map_reduce_full(txn_id, txn_id.kind.witnessed_by(),
+                             TestStartedAt.STARTED_AFTER, TestDep.WITHOUT,
+                             TestStatus.IS_PROPOSED,
+                             lambda t, at: found.append(t))
+        return found
+
+    def executes_after_without_witnessing_ids(self, txn_id: TxnId
+                                              ) -> List[TxnId]:
+        """hasStableExecutesAfterWithoutWitnessing (ANY started-at; the dep
+        test already restricts to executeAt > txn_id)."""
+        found: List[TxnId] = []
+        self.map_reduce_full(txn_id, txn_id.kind.witnessed_by(),
+                             TestStartedAt.ANY, TestDep.WITHOUT,
+                             TestStatus.IS_STABLE,
+                             lambda t, at: found.append(t))
+        return found
+
+    def stable_started_before_and_witnessed(self, txn_id: TxnId
+                                            ) -> List[TxnId]:
+        out: List[TxnId] = []
+        self.map_reduce_full(txn_id, txn_id.kind.witnessed_by(),
+                             TestStartedAt.STARTED_BEFORE, TestDep.WITH,
+                             TestStatus.IS_STABLE,
+                             lambda t, at: out.append(t))
+        return out
+
+    def accepted_started_before_without_witnessing(self, txn_id: TxnId
+                                                   ) -> List[TxnId]:
+        """acceptedOrCommittedStartedBeforeWithoutWitnessing: proposed to
+        execute after txn_id with deps omitting it — recovery must await
+        their commit before deciphering the fast path (:329-342)."""
+        out: List[TxnId] = []
+        self.map_reduce_full(txn_id, txn_id.kind.witnessed_by(),
+                             TestStartedAt.STARTED_BEFORE, TestDep.WITHOUT,
+                             TestStatus.IS_PROPOSED,
+                             lambda t, at: out.append(t) if at > txn_id
+                             else None)
+        return out
 
     def __repr__(self):
         return f"CFK({self.key!r}, {len(self._ids)} txns)"

@@ -6,8 +6,11 @@ in-window conflict graph, and the execution waves (ops/wavefront.py), fused
 in ops/sharded.py::resolve_step.  On the card the mask and the waves run as
 hand-written CUDA kernels (ops/cuda_kernels.py, sources in csrc/); the plain
 PyTorch versions are the CPU path and the oracle the kernels are held == to.
-The TPC-C replay's key-set windows (ops/keyset.py) run the same way, with
-their own kernel on the card.
+The TPC-C replay's key-set windows (ops/keyset.py) and the rangestress
+lane's interval stab counts (ops/range_kernel.py) run the same way, each
+with its own kernel on the card.  The batched recovery scans
+(ops/recovery_kernel.py) lie outside Pallas in the JAX package and stay
+plain PyTorch on either device.
 
 The kernel wrappers are resolved lazily (PEP 562), as the JAX package
 resolves its Pallas entry points.  Nothing is built on import: each kernel
@@ -23,9 +26,15 @@ from accord_tpu_torch.ops.wavefront import execution_waves, waves_oracle
 from accord_tpu_torch.ops.keyset import (cross_window_deps, keyset_windows,
                                          shared_keys)
 from accord_tpu_torch.ops.sharded import resolve_step
+from accord_tpu_torch.ops.range_kernel import (range_stab_counts,
+                                               range_stab_mask,
+                                               stab_counts_chunked)
+from accord_tpu_torch.ops.recovery_kernel import (RecoveryEncoder,
+                                                  batched_recovery_scans)
 
 _KERNEL_EXPORTS = ("batched_active_deps_cuda", "deps_tile_cuda",
-                   "execution_waves_cuda", "keyset_windows_cuda")
+                   "execution_waves_cuda", "keyset_windows_cuda",
+                   "range_stab_counts_cuda")
 
 # the kernel names are deliberately NOT in __all__: a star-import resolves
 # every __all__ entry and would defeat the lazy lookup below
@@ -34,6 +43,8 @@ __all__ = [
     "window_to_tensors", "batched_active_deps", "conflict_edges",
     "in_batch_graph", "execution_waves", "waves_oracle", "resolve_step",
     "shared_keys", "keyset_windows", "cross_window_deps",
+    "range_stab_counts", "range_stab_mask", "stab_counts_chunked",
+    "RecoveryEncoder", "batched_recovery_scans",
 ]
 
 

@@ -8,7 +8,11 @@ The counterpart of ``accord_tpu/ops/pallas_kernels.py``:
   (entry ``execution_waves_pallas``);
 * K4, the key-set windows (``csrc/keyset_windows.cu``), replaces
   ``_keyset_windows_kernel`` (entry ``keyset_windows_pallas``) on the TPC-C
-  replay lane.
+  replay lane;
+* K5, the range stab counts (``csrc/range_stab.cu``), is the counterpart of
+  an XLA fusion, not of a Pallas kernel: ``range_kernel.range_stab_counts``,
+  whose [Q, N] compare-and-count plain PyTorch cannot fuse, on the
+  rangestress lane.
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface, at first use, into ``accord_tpu_torch/_build/`` under a
@@ -16,8 +20,8 @@ name keyed by a hash of the source and the flags, and bound with ctypes.
 Importing this module builds nothing.
 
 Every wrapper takes the plain PyTorch version (ops/deps_kernel.py,
-ops/wavefront.py, ops/keyset.py) when its tensors lie on the CPU, and only
-then: on CUDA tensors it launches its kernel or raises.  Each launch's error
+ops/wavefront.py, ops/keyset.py, ops/range_kernel.py) when its tensors lie
+on the CPU, and only then: on CUDA tensors it launches its kernel or raises.  Each launch's error
 code is checked, and each wrapper adds one to its kernel's ``launches``
 count where it launches, and nowhere else.
 """
@@ -35,7 +39,7 @@ from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
-from accord_tpu_torch.ops import deps_kernel, keyset, wavefront
+from accord_tpu_torch.ops import deps_kernel, keyset, range_kernel, wavefront
 
 _PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = _PACKAGE / "csrc"
@@ -137,7 +141,12 @@ KEYSET_WINDOWS = Kernel("keyset_windows", "keyset_windows.cu", {
     "keyset_windows_launch": ((_P, _P, _I, _I, _I, _P, _P, _P, _P, _P), _I),
     "keyset_windows_error_string": ((_I,), ctypes.c_char_p),
 })
-KERNELS = (DEPS_TILE, WAVEFRONT, KEYSET_WINDOWS)
+RANGE_STAB = Kernel("range_stab", "range_stab.cu", {
+    "range_stab_launch": ((_P, _P, ctypes.c_longlong, _P, _P, _I, _P, _P),
+                          _I),
+    "range_stab_error_string": ((_I,), ctypes.c_char_p),
+})
+KERNELS = (DEPS_TILE, WAVEFRONT, KEYSET_WINDOWS, RANGE_STAB)
 # K4's range (csrc/keyset_windows.cu): key slots B*P a window, P >= 1.  Up
 # to 16 keys a row and 22,528 slots a window's index lives in one block's
 # shared memory; above, in global scratch (the large-window kernel).
@@ -387,3 +396,34 @@ def keyset_windows_cuda(txn_keys, txn_rank, stats=None):
     KEYSET_WINDOWS.check(code)
     KEYSET_WINDOWS.launches += 1
     return edges, max_wave
+
+
+def range_stab_counts_cuda(starts, ends, q_starts, q_ends):
+    """``range_kernel.range_stab_counts`` in K5 on CUDA tensors, in its plain
+    version on CPU tensors: int32 interval bounds [N] and query bounds [Q]
+    -> int32 [Q] intersect counts.  Any N >= 0 and Q >= 0, no padding."""
+    args = (starts, ends, q_starts, q_ends)
+    dev = _cuda_device(args)
+    if dev is None:
+        return range_kernel.range_stab_counts(*args)
+    if starts.dim() != 1 or q_starts.dim() != 1:
+        raise ValueError(f"expected [N] intervals and [Q] queries, got "
+                         f"{tuple(starts.shape)} and {tuple(q_starts.shape)}")
+    n, q = starts.shape[0], q_starts.shape[0]
+    for name, t, size in (("starts", starts, n), ("ends", ends, n),
+                          ("q_starts", q_starts, q), ("q_ends", q_ends, q)):
+        _require(t, name, torch.int32, (size,))
+    if q >= 2 ** 31:
+        raise ValueError(f"too many queries for the range stab kernel: Q={q}")
+    counts = torch.empty(q, dtype=torch.int32, device=dev)  # zeroed by K5
+    if q == 0 or n == 0:
+        return counts.zero_()
+    lib = RANGE_STAB.lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.range_stab_launch(
+            starts.data_ptr(), ends.data_ptr(), n, q_starts.data_ptr(),
+            q_ends.data_ptr(), q, counts.data_ptr(), stream)
+    RANGE_STAB.check(code)
+    RANGE_STAB.launches += 1
+    return counts

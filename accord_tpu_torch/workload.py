@@ -9,8 +9,11 @@ shape of the reference's hot loop, CommandsForKey.mapReduceActive, reference
 accord/local/CommandsForKey.java:614-650, invoked per key per PreAccept).
 ``random_world`` is the small randomized world the equivalence checks use:
 every kind and status, slow-path executeAts and per-key deps, so the
-missing[] and elision paths are exercised.  ``keyset_cases`` are the
-key-set windows on which a sparse key-to-rows formulation can go wrong.
+missing[] and elision paths are exercised.  ``recovery_world`` mixes such a
+world's new transactions with ids it already knows into a window of
+recovery probes.  ``keyset_cases`` are the key-set windows on which a sparse
+key-to-rows formulation can go wrong.  ``rangestress_inputs`` draws
+``bench.py::bench_rangestress``'s intervals and queries.
 """
 
 from __future__ import annotations
@@ -115,6 +118,102 @@ def random_world(rng: RandomSource, n_keys=12, n_existing=60, n_batch=16):
         touched = rng.sample(keys, 1 + rng.next_int(4))
         batch.append((tid, touched))
     return list(cfks.values()), batch
+
+
+def recovery_world(n_keys=1024, n_existing=16384, n_probes=512, seed=42):
+    """A window of recovery probes over a random world -> (cfks, probes
+    [(TxnId, keys)]), mixed as tests/test_recovery_kernel.py mixes them:
+    ``random_world``'s n_probes // 2 new transactions (unknown at most keys:
+    the WITH-dep known gate), then ids the world knows, one every
+    len(known) // (n_probes - n_probes // 2), each at every key that holds
+    it, cut to n_probes.
+
+    At the defaults the recovery encoder takes E = 32,896 entries and
+    R = 19,313 ranks: about the largest power-of-two world whose
+    entry_index * R + rank codes fit int32 (RecoveryEncoder's assert)."""
+    n_batch = n_probes // 2
+    cfks, batch = random_world(RandomSource(seed), n_keys=n_keys,
+                               n_existing=n_existing, n_batch=n_batch)
+    known = [t for c in cfks for t in c.all_ids()]
+    probes = list(batch)
+    for i in range(0, len(known),
+                   max(1, len(known) // max(1, n_probes - n_batch))):
+        t = known[i]
+        keys = [c.key for c in cfks if c.get(t) is not None]
+        if keys:
+            probes.append((t, keys))
+    return cfks, probes[:n_probes]
+
+
+def rangestress_inputs(n_ranges=1_000_000, n_txns=10_000, seed=42):
+    """``bench.py::bench_rangestress``'s draws (:481-485), in its order, from
+    ``np.random.default_rng(seed)`` -> (starts, ends [n_ranges] int64,
+    q_starts, q_ends [n_txns] int64, the 5 query indices of its host sample
+    check, drawn next).  Every interval and query is non-empty and every
+    bound fits int32."""
+    universe = 1_000_000_000
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(0, universe - 1_000_000, n_ranges)
+    ends = starts + rng.integers(1, 1_000_000, n_ranges)
+    q_starts = rng.integers(0, universe - 2_000_000, n_txns)
+    q_ends = q_starts + rng.integers(1000, 2_000_000, n_txns)
+    return starts, ends, q_starts, q_ends, rng.integers(0, n_txns, 5)
+
+
+def range_cases():
+    """Interval stabbing inputs on which a tiled kernel can go wrong ->
+    [(label, starts [N], ends [N], q_starts [Q], q_ends [Q]), int32]: N and Q
+    that are no multiple of any tile, N = 1 and Q = 1, bounds at -2**31 and
+    2**31-1, touching bounds (s == qe, e == qs), [0, 0) pads against
+    negative queries and [0, 0) queries against intervals around 0."""
+    rng = np.random.default_rng(0)
+    lo, hi = -2 ** 31, 2 ** 31 - 1
+
+    def draw(n, span):
+        a = rng.integers(-span, span, n)
+        b = a + rng.integers(1, span // 4 + 2, n)
+        return a.astype(np.int32), np.minimum(b, hi).astype(np.int32)
+
+    cases = []
+    s, e = draw(5003, 10 ** 6)
+    qs, qe = draw(2049, 10 ** 6)
+    cases.append(("ragged N = 5003, Q = 2049", s, e, qs, qe))
+    s, e = draw(70_001, 10 ** 7)
+    qs, qe = draw(4099, 10 ** 7)
+    cases.append(("ragged N = 70,001, Q = 4099", s, e, qs, qe))
+    cases.append(("N = 1, Q = 1", np.array([-5], np.int32),
+                  np.array([7], np.int32), np.array([6], np.int32),
+                  np.array([9], np.int32)))
+    s, e = draw(3000, 2 ** 30)
+    s[:40], e[:40] = lo, rng.integers(lo + 1, hi, 40)
+    e[40:80], s[40:80] = hi, rng.integers(lo, hi - 1, 40)
+    s[80], e[80] = lo, hi
+    qs, qe = draw(777, 2 ** 30)
+    qs[:20], qe[:20] = lo, rng.integers(lo + 1, hi, 20)
+    qe[20:40], qs[20:40] = hi, rng.integers(lo, hi - 1, 20)
+    qs[40], qe[40] = lo, hi
+    qs[41], qe[41] = lo, lo + 1
+    qs[42], qe[42] = hi - 1, hi
+    cases.append(("bounds at -2**31 and 2**31-1", s, e, qs, qe))
+    s = rng.integers(0, 100, 1500).astype(np.int32)
+    e = (s + rng.integers(1, 5, 1500)).astype(np.int32)
+    q_at = rng.integers(0, 1500, 300)
+    qs = np.where(rng.random(300) < 0.5, e[q_at], s[q_at] - 3)
+    qe = np.where(qs == e[q_at], qs + 2, s[q_at])   # e == qs, or s == qe
+    cases.append(("touching bounds", s, e, qs.astype(np.int32),
+                  qe.astype(np.int32)))
+    s, e = draw(2500, 1000)
+    s[rng.random(2500) < 0.3] = 0
+    e[s == 0] = 0                                   # [0, 0) pads
+    qs, qe = draw(600, 1000)
+    qs[:200] = rng.integers(-1000, -1, 200)         # qs < 0 < qe hits a pad
+    qe[:100] = rng.integers(1, 1000, 100)
+    qe[100:200] = rng.integers(-1000, 1, 100)
+    qe[100:200] = np.maximum(qe[100:200], qs[100:200] + 1)
+    qs[200:260], qe[200:260] = 0, 0                 # [0, 0) queries
+    cases.append(("[0, 0) pads", s, e, qs.astype(np.int32),
+                  qe.astype(np.int32)))
+    return cases
 
 
 def _keyset_window(rng, b, p, domain, pad=0.2):

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Proof on one H100 that the port builds and resolves a full flush window
-and the full TPC-C new-order replay through its hand-written CUDA kernels.
+"""Proof on one H100 that the port builds and resolves a full flush window,
+the full TPC-C new-order replay, a recovery window and the rangestress lane
+through its hand-written CUDA kernels.
 
     python3 chip_smoke.py          (from the repository root, on a CUDA card)
 
 Phases; any failure raises, exits non-zero and prints no result lines:
- 1. build the three kernels from accord_tpu_torch/csrc/ (one nvcc per source,
+ 1. build the four kernels from accord_tpu_torch/csrc/ (one nvcc per source,
     all started together) and print the build seconds and ptxas' report;
  2. K1, the deps tile: kernel == plain torch on the card for three seeds of
     a small random world and for a world with K > 16384 (also cut to an E
@@ -18,17 +19,20 @@ Phases; any failure raises, exits non-zero and prints no result lines:
     take its forward pass) and once without (the forward pass where the
     rows are in triangular order, else the fixpoint, as K2 reports it), and
     on a DAG with a cycle (the fixpoint; rows on it keep -1);
- 4. the main path at full size: workload.build_world() (seed 42: 1024 keys,
-    65,536-txn conflict index, 512-txn window) encoded and resolved by
-    entry()'s resolve_step on cuda, with the launch counts zeroed just
-    before and read just after; deps == the scalar oracle, edge count == the
-    scalar scan's, every wave >= 0, both kernels launched, and K2 takes its
-    forward pass on the window;
+ 4. the main path at full size: entry()'s example window on cuda == on the
+    CPU; then workload.build_world() (seed 42: 1024 keys, 65,536-txn
+    conflict index, 512-txn window) through the default bench lane's
+    counting run (bench.default_window: encoded and resolved by one
+    resolve_step on cuda), with the launch counts zeroed just before and
+    read just after; deps == the scalar oracle, edge count == the scalar
+    scan's == 1,152,177, every wave >= 0, both kernels launched, and K2
+    takes its forward pass on the window;
  5. timing at the main path's shapes: each kernel's median ms (CUDA events),
     its bound, its plain version's ms, K1's two launches apart (the packing
     pass, the tile) beside a memset of its output, K2's forward pass and
-    fixpoint on phase 3's B = 512
-    random DAG, the steps of resolve_step, and the window's edges/s;
+    fixpoint on phase 3's B = 512 random DAG, succ_w's ms, and the default
+    lane's report (bench.default_report: the step's median ms, the rate and
+    the per-step profile);
  6. K4, the key-set windows: kernel == plain torch == the scalar
     window_oracle on the tests/test_pallas.py inputs (W=3, B=128, P=11) for
     three seeds, on a B = 2048 window over a small key domain (a DAG 784
@@ -49,7 +53,23 @@ Phases; any failure raises, exits non-zero and prints no result lines:
     gather's ms, the whole pass's ms, txns/s and the host preparation
     seconds; then the same replay cut into windows of 4096 (K4's
     large-window kernel): K4 == plain on every window, window_oracle on
-    three, and K4's ms over the pass.
+    three, and K4's ms over the pass;
+ 9. the recovery window (workload.recovery_world: 512 probes over a random
+    world of 1024 keys and 16,384 txns, E = 32,896 entries, about the
+    largest power-of-two world whose int32 codes the encoder admits):
+    batched_recovery_scans on the card == on the CPU for all four masks,
+    and, probe by probe, the reject masks folded with any() and the two id
+    lists decoded == the scalar scans on all 512 probes; its median ms;
+10. K5, the range stab counts: kernel == plain torch on workload.range_cases
+    (N and Q no multiple of any tile, N = 1 and Q = 1, bounds at -2**31 and
+    2**31-1, touching bounds, [0, 0) pads against negative queries);
+11. the rangestress lane at full size (1,000,000 intervals, 10,000 queries,
+    seed 42): its counting run (bench.rangestress_counts), with the launch
+    counts zeroed just before and read just after: one K5 launch and no
+    other, the total == 15,193,250, the lane's host sample check; K5 == the
+    chunked plain version on all 10,000 counts and == a count by sorting;
+    then its report (bench.rangestress_report: K5's median ms and the
+    lane's rates), K5's bound and the chunked plain version's ms.
 The tolerance everywhere is exact equality: every output is integer or bool.
 
 Then, on lines of their own: the card's name and power limit (nvidia-smi),
@@ -64,10 +84,12 @@ import time
 import numpy as np
 import torch
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and the
-# non-tensor-core 32-bit rate taken for the kernels' integer operations
+# H100 SXM peaks: HBM3 bytes/s (NVIDIA data sheet), and the 32-bit integer
+# rate of the kernels' operations: 132 SMs of 64 INT32 lanes (NVIDIA's
+# Hopper white paper) at the 1.98 GHz boost clock that the data sheet's
+# 67 TFLOP/s in float32 implies (132 SMs x 128 lanes x 2 flops an FMA)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
+PEAK_INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 # bench.bench_tpcc() with its defaults (seed 42), run on the CPU with the JAX
 # package: the full replay's counts, the only tie to the reference on a
@@ -77,6 +99,8 @@ TPCC_EDGES = 7_545_444
 TPCC_CROSS = 5_929_224
 TPCC_IN_WINDOW = 1_616_220
 TPCC_MAX_WAVE = 13
+# bench.bench_default()'s world: the scalar scan's edge count
+DEFAULT_EDGES = 1_152_177
 
 
 def log(msg: str) -> None:
@@ -95,43 +119,31 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
         if a.numel() else 0
 
 
-def median_ms(fn, reps: int, per_batch: int = 1) -> float:
-    """Median device ms of `fn` over `reps` batches of `per_batch` calls, each
-    batch between two CUDA events.  A sleep kernel queued first keeps the
-    card busy while the host enqueues the batch, so host overhead between
-    calls does not show up as device time."""
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(5_000_000)
-        start.record()
-        for _ in range(per_batch):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / per_batch)
-    return statistics.median(times)
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    from accord_tpu_torch import tpcc
+    from accord_tpu_torch import bench, tpcc
     from accord_tpu_torch.entry import entry
     from accord_tpu_torch.ops import cuda_kernels as ck
-    from accord_tpu_torch.ops import deps_kernel, keyset, wavefront
+    from accord_tpu_torch.ops import (deps_kernel, keyset, range_kernel,
+                                      wavefront)
     from accord_tpu_torch.ops.encode import (BatchEncoder, scalar_deps_oracle,
                                              window_to_tensors)
+    from accord_tpu_torch.ops.recovery_kernel import (RecoveryEncoder,
+                                                      batched_recovery_scans,
+                                                      scalar_predicates)
     from accord_tpu_torch.utils.backend import card_name_and_power_limit
     from accord_tpu_torch.utils.random_source import RandomSource
+    from accord_tpu_torch.utils.timing import median_ms
     from accord_tpu_torch.workload import (build_world, keyset_cases,
-                                           random_world, scalar_edges_per_sec)
+                                           random_world, range_cases,
+                                           rangestress_inputs, recovery_world)
 
     dev = torch.device("cuda", 0)
     sys.setrecursionlimit(20000)  # waves_oracle recurses along DAG chains
-    err = {"deps_tile": 0, "wavefront": 0, "keyset_windows": 0}
+    err = {"deps_tile": 0, "wavefront": 0, "keyset_windows": 0,
+           "range_stab": 0}
 
     # ---- 1. build
     t0 = time.perf_counter()
@@ -253,31 +265,35 @@ def main() -> int:
     log("[main] entry() example window: cuda == cpu on all four outputs")
 
     t0 = time.perf_counter()
-    cfks, batch = build_world(seed=42)
-    enc = BatchEncoder(cfks, batch)
-    args = window_to_tensors(enc.state, enc.dbatch)
-    log(f"[main] build_world + encode {time.perf_counter() - t0:.1f}s: "
-        f"B={args[5].shape[0]} E={args[0].shape[0]} K={args[8].shape[1]}")
+    cfks, batch = world = build_world(seed=42)
+    log(f"[main] build_world {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     torch.cuda.synchronize()
     ck.reset_launch_counts()
-    dep_mask, dep_count, dep_bb, waves = fn(*args)
+    # raises unless the edge count == the scalar scan's
+    win = bench.default_window(world, dev)
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in ck.KERNELS}
+    enc, args = win.encoder, win.args
+    log(f"[main] encode, resolve_step and the scalar scan "
+        f"{time.perf_counter() - t0:.1f}s: B={args[5].shape[0]} "
+        f"E={args[0].shape[0]} K={args[8].shape[1]}")
     check(launches["deps_tile"] > 0 and launches["wavefront"] > 0,
           f"a kernel of the flush-window path was not launched: {launches}")
 
+    dep_mask, dep_count, dep_bb, waves = win.out
     n = len(batch)
     check(enc.decode_deps(dep_mask.cpu().numpy())
           == scalar_deps_oracle(cfks, batch), "deps != scalar oracle")
-    scalar_eps, scalar_edges = scalar_edges_per_sec(cfks, batch)
-    edges = int(dep_count.sum())
-    check(edges == scalar_edges, f"edges {edges} != scalar {scalar_edges}")
+    scalar_eps, edges = win.scalar_edges_per_sec, win.edges
+    check(edges == DEFAULT_EDGES, f"edges {edges} != {DEFAULT_EDGES}")
     check(bool((waves[:n] >= 0).all()), "a txn was left without a wave")
     check(torch.equal(waves, wavefront.execution_waves(dep_bb)),
           "main-path waves != plain")
     max_wave = int(waves.max())
     _, how = waves_run("the main window", dep_bb, args[5], 1)
-    log(f"[main] deps == scalar oracle; edges {edges} == scalar; "
+    log(f"[main] deps == scalar oracle; edges {edges} == scalar == "
+        f"{DEFAULT_EDGES}; "
         f"in-window edges {int(dep_bb.sum())}; max wave {max_wave}; "
         f"launches {launches}; K2 with the window's ranks: {how}")
 
@@ -317,22 +333,27 @@ def main() -> int:
         lambda: ck.execution_waves_cuda(dag, dag_rank), reps=15, per_batch=10)
     k2_dag_fixpoint_ms = median_ms(
         lambda: ck.execution_waves_cuda(dag), reps=15, per_batch=10)
-    step_ms = median_ms(lambda: fn(*args), reps=7)
+    # the step and its parts, timed by the default lane's report
+    dl = bench.default_report(win)
+    step_ms = dl["step_ms"]
+    graph_ms = dl["profile"]["in_batch_graph_median_ms"]
     # the rest of the step, which runs as plain torch on the card
     succ_ms = median_ms(
         lambda: deps_kernel.successor_write_eat(er, eer, ek, es, ekd), reps=7)
-    graph_ms = median_ms(
-        lambda: deps_kernel.in_batch_graph(tr, twm, tk, touches), reps=7)
+    log(f"[default] {json.dumps(dl)}")
     log("[time] no single PyTorch call computes either kernel's function, "
         "so library_ms is null for both")
 
     b, e, k = touches.shape[0], er.shape[0], touches.shape[1]
     # K1 moves each input once (touches B*K bytes, six int32 [E] vectors,
-    # two int32 [B]) and writes the B*E mask and the int32 counts; it
-    # evaluates ~10 integer operations per (b, e) (five compares, a shift
-    # and mask, four ands)
+    # two int32 [B]) and writes the B*E mask and the int32 counts.  Its
+    # function needs one test a (b, e) pair (does txn b touch e's key) and,
+    # for the pairs this run's data lets through, eight more (the rank
+    # compare, the witness shift and mask, the elision compare, four ands);
+    # the per-entry terms are E-sized and left out
+    k1_touched = int(touches[:, ek].sum(dtype=torch.int64))
     k1_bytes = b * k + 6 * 4 * e + 2 * 4 * b + b * e + 4 * b
-    k1_ops = 10 * b * e
+    k1_ops = b * e + 8 * k1_touched
     # K2 reads the B*B matrix and the int32 [B] ranks once and writes int32
     # [B]; the longest path over this run's DAG needs one max a row and one
     # an edge
@@ -341,15 +362,24 @@ def main() -> int:
 
     def bound(nbytes, ops):
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_OPS_PER_S * 1e3
+        t_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
         return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
     k1_bound, k1_by = bound(k1_bytes, k1_ops)
     k2_bound, k2_by = bound(k2_bytes, k2_ops)
+    # the step (K3): the sum of its four steps' byte bounds, each counting
+    # its own inputs read once and outputs written once: succ_w reads five
+    # int32 [E] vectors and writes one, the graph reads three int32 [B]
+    # vectors and touches and writes the B*B graph
+    succ_bytes = 6 * 4 * e
+    graph_bytes = 3 * 4 * b + b * k + b * b
+    step_bound = (succ_bytes + k1_bytes + graph_bytes + k2_bytes) \
+        / PEAK_BYTES_PER_S * 1e3
     log(f"[time] K1 deps tile  {k1_ms:.4f} ms (plain {k1_plain_ms:.4f} ms, "
         f"bound {k1_bound:.4f} ms by {k1_by}); apart: packing pass "
         f"{k1_pack_ms:.4f} ms, tile {k1_tile_ms:.4f} ms; a memset of its "
-        f"output {memset_ms:.4f} ms")
+        f"output {memset_ms:.4f} ms; {k1_bytes} bytes, {k1_ops} operations "
+        f"({k1_touched} pairs whose key the txn touches)")
     log(f"[time] K2 wavefront  {k2_ms:.4f} ms (plain {k2_plain_ms:.4f} ms, "
         f"bound {k2_bound:.6f} ms by {k2_by}); phase 3's B = 512 random "
         f"DAG: forward pass with its ranks {k2_dag_forward_ms:.4f} ms, "
@@ -358,7 +388,9 @@ def main() -> int:
         f"in_batch_graph {graph_ms:.4f} ms")
     log(f"[time] resolve_step {step_ms:.4f} ms for {edges} edges: "
         f"{edges / (step_ms / 1e3):.1f} edges/s on the card; scalar host "
-        f"scan {scalar_eps:.1f} edges/s")
+        f"scan {scalar_eps:.1f} edges/s; the step's bound {step_bound:.6f} "
+        f"ms by bytes (succ_w {succ_bytes}, K1 {k1_bytes}, graph "
+        f"{graph_bytes}, K2 {k2_bytes} bytes)")
 
     # ---- 6. K4 == plain == oracle
     def keyset_vs_plain(label, tk, tr):
@@ -539,6 +571,114 @@ def main() -> int:
         f"{k4_4k_ms:.4f} ms; == plain on every window, window_oracle on "
         f"windows 0, {n4k // 2}, {n4k - 1}")
 
+    # ---- 9. the recovery window
+    t0 = time.perf_counter()
+    rec_cfks, rec_probes = recovery_world()
+    rec_enc = RecoveryEncoder(rec_cfks, rec_probes)
+    rec_args = rec_enc.tensors(dev)
+    log(f"[recovery] recovery_world + encode {time.perf_counter() - t0:.1f}s: "
+        f"{len(rec_probes)} probes, E={rec_enc.entry_rank.shape[0]} "
+        f"R={rec_enc.rank_count} missing[] codes "
+        f"{rec_enc.missing_code.shape[0] - 1} B={rec_enc.probe_rank.shape[0]} "
+        f"K={rec_enc.touches.shape[1]}")
+    check(len(rec_probes) == 512, "the recovery window has not 512 probes")
+    rec_out = batched_recovery_scans(*rec_args)
+    rec_cpu = batched_recovery_scans(*rec_enc.tensors("cpu"))
+    torch.cuda.synchronize()
+    names = ("rejects_a", "rejects_b", "committed_witness",
+             "accepted_no_witness")
+    for name, got, want in zip(names, rec_out, rec_cpu):
+        check(got.device.type == "cuda" and torch.equal(got.cpu(), want),
+              f"recovery {name}: cuda != cpu")
+    masks = [m.cpu().numpy() for m in rec_out]
+    for i, (probe, keys) in enumerate(rec_probes):
+        ra, rb, cw, anw = scalar_predicates(rec_cfks, probe, keys)
+        check((bool(masks[0][i].any()), bool(masks[1][i].any())) == (ra, rb)
+              and rec_enc.decode_ids(masks[2][i]) == cw
+              and rec_enc.decode_ids(masks[3][i]) == anw,
+              f"recovery masks != the scalar scans on probe {i}")
+    rec_ms = median_ms(lambda: batched_recovery_scans(*rec_args), reps=7)
+    log(f"[recovery] mask sums {[int(m.sum()) for m in masks]}, probes "
+        f"rejected (a, b) {[int(m.any(axis=1).sum()) for m in masks[:2]]}; "
+        f"cuda == cpu on all four masks; == the scalar scans on all "
+        f"{len(rec_probes)} probes; batched_recovery_scans {rec_ms:.4f} ms "
+        f"(plain torch on the card)")
+
+    # ---- 10. K5 == plain
+    def range_vs_plain(label, s, e, qs, qe):
+        got = ck.range_stab_counts_cuda(s, e, qs, qe)
+        want = range_kernel.range_stab_counts(s, e, qs, qe)
+        torch.cuda.synchronize()
+        e_ = max_abs_err(got, want)
+        err["range_stab"] = max(err["range_stab"], e_)
+        check(e_ == 0, f"K5 != plain on {label}")
+        return got
+
+    for label, *arrays in range_cases():
+        got = range_vs_plain(label, *(torch.from_numpy(a).to(dev)
+                                      for a in arrays))
+        log(f"[K5] {label}: N={arrays[0].shape[0]} Q={arrays[2].shape[0]} "
+            f"total {int(got.sum(dtype=torch.int64))} == plain")
+
+    # ---- 11. the rangestress lane at full size
+    rs_inputs = rangestress_inputs()
+    starts, ends, q_starts, q_ends, _sample = rs_inputs
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    # raises unless the host sample check passes and the total is
+    # RANGESTRESS_EDGES
+    rc = bench.rangestress_counts(rs_inputs)
+    torch.cuda.synchronize()
+    rs_launches = {k.name: k.launches for k in ck.KERNELS}
+    check(rs_launches["range_stab"] == 1
+          and sum(rs_launches.values()) == 1,
+          f"the rangestress counts were not one K5 launch: {rs_launches}")
+    check(rc.edges == bench.RANGESTRESS_EDGES,
+          f"rangestress total {rc.edges} != {bench.RANGESTRESS_EDGES}")
+    n_iv, n_q = len(starts), len(q_starts)
+    k5_counts = torch.from_numpy(rc.per_query).to(dev)
+    k5_chunked = torch.cat(range_kernel.stab_counts_chunked(*rc.args))[:n_q]
+    err["range_stab"] = max(err["range_stab"],
+                            max_abs_err(k5_counts, k5_chunked))
+    check(err["range_stab"] == 0,
+          "K5 != the chunked plain version on the rangestress lane")
+    check(np.array_equal(rc.per_query, range_kernel.stab_counts_sorted(
+        starts, ends, q_starts, q_ends)),
+          "K5 != the count by sorting on the rangestress lane")
+    rs = bench.rangestress_report(rc)
+    k5_ms = rs["device_seconds"] * 1e3
+    k5_plain_ms = median_ms(
+        lambda: range_kernel.stab_counts_chunked(*rc.args), reps=3)
+    # K5 reads each interval and query bound once (int32) and writes int32
+    # counts.  Its function needs far fewer operations than the 3 a pair
+    # (two compares, an add) K5 spends on every pair: where an interval and
+    # a query are both non-empty, the count is N - #{s >= qe} - #{e <= qs},
+    # two sorts of the N bounds (N * ceil(log2 N) compares each) and two
+    # binary searches and two subtractions a query.  The pairs of an empty
+    # or inverted interval or query (none in this run) are counted at 3
+    # operations each.
+    lg = max(1, (n_iv - 1).bit_length())
+    s_, e_, qs_, qe_ = rc.args
+    n_bad, q_bad = int((s_ >= e_).sum()), int((qs_ >= qe_).sum())
+    k5_bytes = 4 * 2 * n_iv + 4 * 2 * n_q + 4 * n_q
+    k5_ops = 2 * n_iv * lg + 2 * n_q * (lg + 1) \
+        + 3 * (n_bad * n_q + q_bad * n_iv)
+    k5_bound, k5_by = bound(k5_bytes, k5_ops)
+    k5_brute_ops = 3 * n_iv * n_q
+    log(f"[rangestress] {json.dumps(rs)}")
+    log(f"[rangestress] launches {rs_launches}; total {rc.edges} == "
+        f"{bench.RANGESTRESS_EDGES}; K5 == the chunked plain version == the "
+        f"count by sorting on all {n_q} queries (per query "
+        f"{int(rc.per_query.min())}-{int(rc.per_query.max())})")
+    log(f"[time] K5 range stab {k5_ms:.4f} ms (chunked plain "
+        f"{k5_plain_ms:.4f} ms, bound {k5_bound:.6f} ms by {k5_by}: "
+        f"{k5_bytes} bytes, {k5_ops} operations of the count by sorting, "
+        f"{n_bad} empty intervals, {q_bad} empty queries); the brute force "
+        f"K5 runs, 3 operations for each of the {n_iv * n_q} pairs, would "
+        f"take {k5_brute_ops / PEAK_INT32_OPS_PER_S * 1e3:.4f} ms at the "
+        f"int32 rate; no single torch call computes it, so its library_ms "
+        f"is null")
+
     kernels = [
         {"name": "deps_tile", "route": "cuda",
          "source": "accord_tpu_torch/csrc/deps_tile.cu",
@@ -559,6 +699,13 @@ def main() -> int:
          "max_abs_err": err["keyset_windows"],
          "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
          "bound_by": k4_by, "library_ms": None},
+        {"name": "range_stab", "route": "cuda",
+         "source": "accord_tpu_torch/csrc/range_stab.cu",
+         "replaces": "accord_tpu/ops/range_kernel.py:26",
+         "launches": rs_launches["range_stab"],
+         "max_abs_err": err["range_stab"],
+         "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound,
+         "bound_by": k5_by, "library_ms": None},
     ]
     print(card_name_and_power_limit())
     print(json.dumps({"kernels": kernels}))

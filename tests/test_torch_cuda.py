@@ -14,12 +14,17 @@ import pytest
 import torch
 
 from accord_tpu_torch.entry import entry
-from accord_tpu_torch.ops import cuda_kernels, deps_kernel, keyset, wavefront
+from accord_tpu_torch.ops import (cuda_kernels, deps_kernel, keyset,
+                                  range_kernel, wavefront)
 from accord_tpu_torch.ops.encode import BatchEncoder, window_to_tensors
+from accord_tpu_torch.ops.recovery_kernel import (RecoveryEncoder,
+                                                  batched_recovery_scans,
+                                                  scalar_predicates)
 from accord_tpu_torch.tpcc import window_oracle
 from accord_tpu_torch.utils.random_source import RandomSource
 from accord_tpu_torch.workload import (build_world, keyset_cases,
-                                       large_keyset_window, random_world)
+                                       large_keyset_window, random_world,
+                                       range_cases, recovery_world)
 
 pytestmark = pytest.mark.cuda
 
@@ -156,7 +161,7 @@ def test_resolve_step_on_card_matches_cpu(card):
     assert all(a.device.type == "cuda" for a in args)
     cuda_kernels.reset_launch_counts()
     got = fn(*args)
-    assert [k.launches for k in cuda_kernels.KERNELS] == [1, 1, 0]
+    assert [k.launches for k in cuda_kernels.KERNELS] == [1, 1, 0, 0]
     for g, w in zip(got, fn(*(a.cpu() for a in args))):
         assert torch.equal(g.cpu(), w)
 
@@ -242,3 +247,35 @@ def test_keyset_windows_large_windows(card, b, p):
     for wi in range(3):
         assert window_oracle(tk_np[wi], tr_np[wi]) == (int(got[0][wi]),
                                                        int(got[1][wi]))
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_range_stab_kernel_matches_plain(card, case):
+    """K5 == plain on workload.range_cases: N and Q no multiple of any tile,
+    N = 1 and Q = 1, bounds at -2**31 and 2**31-1, touching bounds, [0, 0)
+    pads against negative queries; one launch a call."""
+    label, *arrays = range_cases()[case]
+    s, e, qs, qe = (torch.from_numpy(a).to(card) for a in arrays)
+    before = cuda_kernels.RANGE_STAB.launches
+    got = cuda_kernels.range_stab_counts_cuda(s, e, qs, qe)
+    assert cuda_kernels.RANGE_STAB.launches == before + 1
+    assert torch.equal(got, range_kernel.range_stab_counts(s, e, qs, qe)), \
+        label
+
+
+def test_recovery_scans_on_card_match_cpu(card):
+    """batched_recovery_scans on CUDA tensors == on CPU tensors, and folded
+    and decoded == the scalar scans, probe by probe."""
+    cfks, probes = recovery_world(n_keys=64, n_existing=1500, n_probes=128,
+                                  seed=4)
+    enc = RecoveryEncoder(cfks, probes)
+    got = batched_recovery_scans(*enc.tensors(card))
+    want = batched_recovery_scans(*enc.tensors("cpu"))
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), w)
+    got = [g.cpu().numpy() for g in got]
+    for i, (probe, keys) in enumerate(probes):
+        ra, rb, cw, anw = scalar_predicates(cfks, probe, keys)
+        assert (bool(got[0][i].any()), bool(got[1][i].any())) == (ra, rb)
+        assert enc.decode_ids(got[2][i]) == cw
+        assert enc.decode_ids(got[3][i]) == anw

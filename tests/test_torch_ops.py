@@ -165,7 +165,7 @@ def test_wrappers_take_plain_versions_on_cpu():
     dep = _t(_random_dag(np.random.default_rng(9), 64, 0.1))
     assert torch.equal(cuda_kernels.execution_waves_cuda(dep),
                        wavefront.execution_waves(dep))
-    assert [k.launches for k in cuda_kernels.KERNELS] == [0, 0, 0]
+    assert [k.launches for k in cuda_kernels.KERNELS] == [0, 0, 0, 0]
 
 
 def test_wrappers_refuse_mixed_devices():

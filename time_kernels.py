@@ -20,7 +20,6 @@ import argparse
 import importlib.util
 import inspect
 import json
-import statistics
 import sys
 from pathlib import Path
 
@@ -28,21 +27,6 @@ import numpy as np
 import torch
 
 HERE = Path(__file__).resolve().parent
-
-
-def median_ms(fn, reps: int, per_batch: int = 10) -> float:
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(5_000_000)
-        start.record()
-        for _ in range(per_batch):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / per_batch)
-    return statistics.median(times)
 
 
 def load_kernels(root: Path, name: str):
@@ -69,7 +53,11 @@ def main() -> int:
     from accord_tpu_torch.ops import deps_kernel, wavefront
     from accord_tpu_torch.ops.encode import BatchEncoder, window_to_tensors
     from accord_tpu_torch.utils.backend import card_name_and_power_limit
+    from accord_tpu_torch.utils.timing import median_ms
     from accord_tpu_torch.workload import build_world
+
+    def timed(fn):
+        return median_ms(fn, ns.reps, per_batch=10)
 
     dev = torch.device("cuda", 0)
     ck.build()
@@ -104,20 +92,20 @@ def main() -> int:
                   torch.equal(mod.execution_waves_cuda(dep_bb), want_waves),
                   torch.equal(mod.execution_waves_cuda(dag), want_dag)]
         out = {
-            "K1 window": median_ms(lambda: mod.deps_tile_cuda(*k1_args), ns.reps),
+            "K1 window": timed(lambda: mod.deps_tile_cuda(*k1_args)),
             "K2 window without ranks":
-                median_ms(lambda: mod.execution_waves_cuda(dep_bb), ns.reps),
+                timed(lambda: mod.execution_waves_cuda(dep_bb)),
             "K2 random DAG without ranks":
-                median_ms(lambda: mod.execution_waves_cuda(dag), ns.reps),
+                timed(lambda: mod.execution_waves_cuda(dag)),
         }
         if takes_rank:
             checks += [
                 torch.equal(mod.execution_waves_cuda(dep_bb, tr), want_waves),
                 torch.equal(mod.execution_waves_cuda(dag, dag_rank), want_dag)]
-            out["K2 window with ranks"] = median_ms(
-                lambda: mod.execution_waves_cuda(dep_bb, tr), ns.reps)
-            out["K2 random DAG with ranks"] = median_ms(
-                lambda: mod.execution_waves_cuda(dag, dag_rank), ns.reps)
+            out["K2 window with ranks"] = timed(
+                lambda: mod.execution_waves_cuda(dep_bb, tr))
+            out["K2 random DAG with ranks"] = timed(
+                lambda: mod.execution_waves_cuda(dag, dag_rank))
         if not all(checks):
             raise AssertionError("a kernel disagrees with its plain version")
         return out
