@@ -12,7 +12,8 @@ The counterpart of ``accord_tpu/ops/pallas_kernels.py``:
 * K5, the range stab counts (``csrc/range_stab.cu``), is the counterpart of
   an XLA fusion, not of a Pallas kernel: ``range_kernel.range_stab_counts``,
   whose [Q, N] compare-and-count plain PyTorch cannot fuse, on the
-  rangestress lane.
+  rangestress lane.  It indexes the queries and streams the intervals once
+  (four steps in five launches: sort, stream, combine, correct).
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface, at first use, into ``accord_tpu_torch/_build/`` under a
@@ -40,6 +41,7 @@ from typing import Dict, Iterable, Optional, Tuple
 import torch
 
 from accord_tpu_torch.ops import deps_kernel, keyset, range_kernel, wavefront
+from accord_tpu_torch.utils.timing import median_ms
 
 _PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = _PACKAGE / "csrc"
@@ -142,8 +144,10 @@ KEYSET_WINDOWS = Kernel("keyset_windows", "keyset_windows.cu", {
     "keyset_windows_error_string": ((_I,), ctypes.c_char_p),
 })
 RANGE_STAB = Kernel("range_stab", "range_stab.cu", {
-    "range_stab_launch": ((_P, _P, ctypes.c_longlong, _P, _P, _I, _P, _P),
-                          _I),
+    "range_stab_launch": ((_P, _P, ctypes.c_longlong, _P, _P, _I, _P, _P, _I,
+                           _P), _I),
+    "range_stab_scratch_words": ((ctypes.c_longlong, _I), ctypes.c_longlong),
+    "range_stab_tile": ((_I,), _I),
     "range_stab_error_string": ((_I,), ctypes.c_char_p),
 })
 KERNELS = (DEPS_TILE, WAVEFRONT, KEYSET_WINDOWS, RANGE_STAB)
@@ -398,14 +402,11 @@ def keyset_windows_cuda(txn_keys, txn_rank, stats=None):
     return edges, max_wave
 
 
-def range_stab_counts_cuda(starts, ends, q_starts, q_ends):
-    """``range_kernel.range_stab_counts`` in K5 on CUDA tensors, in its plain
-    version on CPU tensors: int32 interval bounds [N] and query bounds [Q]
-    -> int32 [Q] intersect counts.  Any N >= 0 and Q >= 0, no padding."""
-    args = (starts, ends, q_starts, q_ends)
-    dev = _cuda_device(args)
+def _range_stab_shape(starts, ends, q_starts, q_ends):
+    """Checks K5's inputs -> (device or None for the CPU, N, Q)."""
+    dev = _cuda_device((starts, ends, q_starts, q_ends))
     if dev is None:
-        return range_kernel.range_stab_counts(*args)
+        return None, starts.shape[0], q_starts.shape[0]
     if starts.dim() != 1 or q_starts.dim() != 1:
         raise ValueError(f"expected [N] intervals and [Q] queries, got "
                          f"{tuple(starts.shape)} and {tuple(q_starts.shape)}")
@@ -413,17 +414,73 @@ def range_stab_counts_cuda(starts, ends, q_starts, q_ends):
     for name, t, size in (("starts", starts, n), ("ends", ends, n),
                           ("q_starts", q_starts, q), ("q_ends", q_ends, q)):
         _require(t, name, torch.int32, (size,))
-    if q >= 2 ** 31:
-        raise ValueError(f"too many queries for the range stab kernel: Q={q}")
-    counts = torch.empty(q, dtype=torch.int32, device=dev)  # zeroed by K5
-    if q == 0 or n == 0:
-        return counts.zero_()
+    if max(n, q) >= 2 ** 31:
+        raise ValueError(f"too many intervals or queries for the range stab "
+                         f"kernel: N={n} Q={q}")
+    return dev, n, q
+
+
+def _range_stab_launch(args, n, q, scratch, counts, phases):
+    starts, ends, q_starts, q_ends = args
     lib = RANGE_STAB.lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(counts.device):
+        stream = torch.cuda.current_stream(counts.device).cuda_stream
         code = lib.range_stab_launch(
             starts.data_ptr(), ends.data_ptr(), n, q_starts.data_ptr(),
-            q_ends.data_ptr(), q, counts.data_ptr(), stream)
+            q_ends.data_ptr(), q, scratch.data_ptr(), counts.data_ptr(),
+            phases, stream)
     RANGE_STAB.check(code)
     RANGE_STAB.launches += 1
+
+
+def _range_stab_buffers(dev, n, q):
+    scratch = torch.empty(RANGE_STAB.lib().range_stab_scratch_words(n, q),
+                          dtype=torch.int32, device=dev)
+    return scratch, torch.empty(q, dtype=torch.int32, device=dev)
+
+
+def range_stab_counts_cuda(starts, ends, q_starts, q_ends):
+    """``range_kernel.range_stab_counts`` in K5 on CUDA tensors, in its plain
+    version on CPU tensors: int32 interval bounds [N] and query bounds [Q]
+    -> int32 [Q] intersect counts.  Any N >= 0 and Q >= 0, no padding."""
+    args = (starts, ends, q_starts, q_ends)
+    dev, n, q = _range_stab_shape(*args)
+    if dev is None:
+        return range_kernel.range_stab_counts(*args)
+    if q == 0:
+        return torch.empty(0, dtype=torch.int32, device=dev)
+    scratch, counts = _range_stab_buffers(dev, n, q)  # all written by K5
+    _range_stab_launch(args, n, q, scratch, counts, 15)
     return counts
+
+
+RANGE_STAB_PHASES = ("sort", "stream", "combine", "correct")
+
+
+def range_stab_tile(q: int) -> int:
+    """Queries in each of K5's query tiles for Q queries (the tiles are as
+    even as its shared memory allows)."""
+    return RANGE_STAB.lib().range_stab_tile(q)
+
+
+def range_stab_phases(starts, ends, q_starts, q_ends, reps=15,
+                      per_batch=10):
+    """K5's four steps timed apart on CUDA tensors -> {phase: median ms
+    (CUDA events)} for the sort (two launches), the stream, the combine and
+    the correction.  Before each phase's timing one whole count runs on the
+    same buffers, so the phase reads what the steps before it wrote; every
+    call of a step counts as one of K5's launches."""
+    args = (starts, ends, q_starts, q_ends)
+    dev, n, q = _range_stab_shape(*args)
+    if dev is None or q == 0:
+        raise ValueError("range_stab_phases times K5 on CUDA tensors with "
+                         "Q >= 1")
+    scratch, counts = _range_stab_buffers(dev, n, q)
+    times = {}
+    for bit, name in enumerate(RANGE_STAB_PHASES):
+        _range_stab_launch(args, n, q, scratch, counts, 15)
+        times[name] = median_ms(
+            lambda bit=bit: _range_stab_launch(args, n, q, scratch, counts,
+                                               1 << bit),
+            reps=reps, per_batch=per_batch)
+    return times

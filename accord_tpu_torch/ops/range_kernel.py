@@ -13,7 +13,9 @@ counts run in a hand-written kernel instead (K5, ``csrc/range_stab.cu``,
 wrapper ``ops/cuda_kernels.py::range_stab_counts_cuda``), and
 ``stab_counts_chunked`` bounds the tile of the plain version.
 ``range_stab_mask`` writes its [Q, N] output anyway and stays plain torch
-on either device.
+on either device.  ``stab_counts_by_query_index`` mirrors K5's algorithm
+(index the queries, stream the intervals once, correct pairwise) in plain
+torch, so its identity and tie conventions are checked on the CPU.
 
 Half-open semantics on both sides, pads included, exactly as the JAX
 package computes them: a [0, 0) interval is hit by a query with
@@ -95,3 +97,59 @@ def stab_counts_sorted(starts: np.ndarray, ends: np.ndarray,
     at_or_after = n - np.searchsorted(s_sorted, q_ends, side="left")
     at_or_before = np.searchsorted(e_sorted, q_starts, side="right")
     return n - at_or_after - at_or_before
+
+
+_TILE_ELEMS = 1 << 26   # the dense correction's [chunk, N] tile, at most
+
+
+def _pairs_outside(starts: torch.Tensor, ends: torch.Tensor,
+                   q_starts: torch.Tensor,
+                   q_ends: torch.Tensor) -> torch.Tensor:
+    """[Q] int64: #{i : s[i] >= qe and e[i] <= qs}, by the dense compare,
+    in chunks of queries whose [chunk, N] tile holds at most _TILE_ELEMS."""
+    chunk = max(1, _TILE_ELEMS // max(1, starts.shape[0]))
+    return torch.cat([
+        ((starts[None, :] >= q_ends[i:i + chunk, None])
+         & (ends[None, :] <= q_starts[i:i + chunk, None])).sum(dim=1)
+        for i in range(0, q_starts.shape[0], chunk)])
+
+
+def stab_counts_by_query_index(starts: torch.Tensor, ends: torch.Tensor,
+                               q_starts: torch.Tensor,
+                               q_ends: torch.Tensor) -> torch.Tensor:
+    """``range_stab_counts`` by K5's algorithm, in plain torch on either
+    device: [N] interval bounds x [Q] query bounds (int32) -> [Q] int32.
+
+    count(q) = F(q) + C(q), with
+      F(q) = #{s < qe} - #{e <= qs}, from the sorted query bounds: each
+             interval's position among them (#{qe <= s}, #{qs < e}) is one
+             histogram bin, and a prefix sum over the bins is the count at
+             every query, tied bounds alike;
+      C(q) = #{s >= qe and e <= qs}, the pairs F counts wrongly.  With
+             qs <= qe such a pair has e <= qs <= qe <= s, so only the
+             intervals with s >= e (inverted, or empty like the [0, 0)
+             pads) take part; an inverted query (qs > qe) is tested against
+             every interval.  Both by the dense compare, on those sets only.
+    """
+    n, q = starts.shape[0], q_starts.shape[0]
+    out = torch.zeros(q, dtype=torch.int64, device=q_starts.device)
+    if n == 0 or q == 0:
+        return out.to(torch.int32)
+    qe_sorted, qe_order = torch.sort(q_ends)
+    qs_sorted, qs_order = torch.sort(q_starts)
+    at_a = torch.searchsorted(qe_sorted, starts, right=True)   # #{qe <= s}
+    at_b = torch.searchsorted(qs_sorted, ends, right=False)    # #{qs < e}
+    # bin q (the past-the-end bin never reaches a query's prefix sum)
+    below_qe = torch.bincount(at_a, minlength=q + 1)[:q].cumsum(0)
+    at_or_below_qs = torch.bincount(at_b, minlength=q + 1)[:q].cumsum(0)
+    out[qe_order] += below_qe
+    out[qs_order] -= at_or_below_qs
+    upright = q_starts <= q_ends
+    bad = starts >= ends
+    if bad.any() and upright.any():
+        out[upright] += _pairs_outside(starts[bad], ends[bad],
+                                       q_starts[upright], q_ends[upright])
+    if not upright.all():
+        out[~upright] += _pairs_outside(starts, ends, q_starts[~upright],
+                                        q_ends[~upright])
+    return out.to(torch.int32)

@@ -216,6 +216,61 @@ def range_cases():
     return cases
 
 
+def range_index_cases():
+    """Inputs on which K5's query index can go wrong -> [(label, starts [N],
+    ends [N], q_starts [Q], q_ends [Q]), int32]: every interval inverted;
+    every query inverted; [0, 0) intervals against [0, 0) queries, at the
+    same point and at others; one q_end shared by every query (ties in the
+    sort); one interval repeated N times (one hot bin); Q = 30,001, more
+    than two query tiles; a random mix of inverted, empty and extreme
+    bounds; N = 0; Q = 1; N = 1."""
+    rng = np.random.default_rng(8)
+    lo, hi = -2 ** 31, 2 ** 31 - 1
+
+    def draw(n, span):
+        a = rng.integers(-span, span, n)
+        return a, a + rng.integers(1, span // 4 + 2, n)
+
+    def i32(*arrays):
+        return tuple(np.asarray(a).astype(np.int32) for a in arrays)
+
+    cases = []
+    s, e = draw(2000, 1000)
+    qs, qe = draw(700, 1000)
+    cases.append(("all intervals inverted", *i32(e, s, qs, qe)))
+    cases.append(("all queries inverted", *i32(s, e, qe, qs)))
+    s, e = draw(1500, 50)
+    zero = rng.random(1500) < 0.4
+    s[zero], e[zero] = 0, 0
+    point = rng.random(1500) < 0.1
+    s[point] = e[point] = rng.integers(-50, 50, int(point.sum()))
+    qs, qe = draw(400, 50)
+    qs[:100], qe[:100] = 0, 0                        # at the pads' point
+    qs[100:200] = qe[100:200] = rng.integers(-50, 50, 100)
+    cases.append(("[0, 0) intervals and [0, 0) queries", *i32(s, e, qs, qe)))
+    s, e = draw(3000, 10 ** 5)
+    qs = rng.integers(-10 ** 5, 500, 900)
+    cases.append(("one q_end for every query",
+                  *i32(s, e, qs, np.full(900, 500))))
+    qs, qe = draw(800, 10 ** 5)
+    cases.append(("one interval repeated (one hot bin)",
+                  *i32(np.full(4000, -7), np.full(4000, 300), qs, qe)))
+    s, e = draw(3000, 10 ** 6)
+    qs, qe = draw(30_001, 10 ** 6)
+    cases.append(("Q = 30,001: three query tiles", *i32(s, e, qs, qe)))
+    s, e = rng.integers(-40, 40, (2, 2500))
+    qs, qe = rng.integers(-40, 40, (2, 1100))
+    s[:30], e[30:60], qs[:30], qe[30:60] = lo, hi, hi, lo
+    cases.append(("random mix of inverted, empty and extreme bounds",
+                  *i32(s, e, qs, qe)))
+    qs, qe = draw(50, 100)
+    cases.append(("N = 0", *i32([], [], qs, qe)))
+    s, e = draw(5000, 100)
+    cases.append(("Q = 1", *i32(s, e, [-3], [20])))
+    cases.append(("N = 1", *i32([4], [9], *draw(300, 12))))
+    return cases
+
+
 def _keyset_window(rng, b, p, domain, pad=0.2):
     """-> (txn_keys [1, b, p] int32: keys from `domain` values, unsorted and
     repeated, negative pads anywhere; txn_rank [1, b] int32: a permutation)."""

@@ -62,14 +62,25 @@ Phases; any failure raises, exits non-zero and prints no result lines:
     lists decoded == the scalar scans on all 512 probes; its median ms;
 10. K5, the range stab counts: kernel == plain torch on workload.range_cases
     (N and Q no multiple of any tile, N = 1 and Q = 1, bounds at -2**31 and
-    2**31-1, touching bounds, [0, 0) pads against negative queries);
+    2**31-1, touching bounds, [0, 0) pads against negative queries) and on
+    workload.range_index_cases (every interval inverted, every query
+    inverted, [0, 0) intervals against [0, 0) queries, one q_end for all
+    queries, one hot bin, three query tiles, a mix of inverted, empty and
+    extreme bounds, N = 0, Q = 1, N = 1);
 11. the rangestress lane at full size (1,000,000 intervals, 10,000 queries,
     seed 42): its counting run (bench.rangestress_counts), with the launch
     counts zeroed just before and read just after: one K5 launch and no
     other, the total == 15,193,250, the lane's host sample check; K5 == the
-    chunked plain version on all 10,000 counts and == a count by sorting;
-    then its report (bench.rangestress_report: K5's median ms and the
-    lane's rates), K5's bound and the chunked plain version's ms.
+    chunked plain version, == a count by sorting and == K5's algorithm in
+    plain torch (stab_counts_by_query_index) on all 10,000 counts; then its
+    report (bench.rangestress_report: K5's median ms and the lane's rates),
+    K5's four steps apart, its bound, the chunked plain version's ms, a
+    yardstick of library calls (torch.sort of the starts and of the ends
+    and two torch.searchsorted), K5 on the lane's first 10^4 intervals (its
+    fixed cost) and on three stress inputs, each == the plain versions:
+    10^6 copies of one interval (one hot bin), the store's
+    127 [0, 0) pad intervals and 127 pad queries added to the lane's, and
+    every query inverted (the pairwise pass over all 10^10 pairs).
 The tolerance everywhere is exact equality: every output is integer or bool.
 
 Then, on lines of their own: the card's name and power limit (nvidia-smi),
@@ -138,6 +149,7 @@ def main() -> int:
     from accord_tpu_torch.utils.timing import median_ms
     from accord_tpu_torch.workload import (build_world, keyset_cases,
                                            random_world, range_cases,
+                                           range_index_cases,
                                            rangestress_inputs, recovery_world)
 
     dev = torch.device("cuda", 0)
@@ -614,7 +626,7 @@ def main() -> int:
         check(e_ == 0, f"K5 != plain on {label}")
         return got
 
-    for label, *arrays in range_cases():
+    for label, *arrays in range_cases() + range_index_cases():
         got = range_vs_plain(label, *(torch.from_numpy(a).to(dev)
                                       for a in arrays))
         log(f"[K5] {label}: N={arrays[0].shape[0]} Q={arrays[2].shape[0]} "
@@ -645,39 +657,96 @@ def main() -> int:
     check(np.array_equal(rc.per_query, range_kernel.stab_counts_sorted(
         starts, ends, q_starts, q_ends)),
           "K5 != the count by sorting on the rangestress lane")
+    check(torch.equal(k5_counts,
+                      range_kernel.stab_counts_by_query_index(*rc.args)),
+          "K5 != stab_counts_by_query_index on the rangestress lane")
     rs = bench.rangestress_report(rc)
     k5_ms = rs["device_seconds"] * 1e3
+    k5_phases = ck.range_stab_phases(*rc.args)
     k5_plain_ms = median_ms(
         lambda: range_kernel.stab_counts_chunked(*rc.args), reps=3)
+    s_, e_, qs_, qe_ = rc.args
+
+    def sort_and_search():
+        s_sorted, e_sorted = torch.sort(s_).values, torch.sort(e_).values
+        return (torch.searchsorted(s_sorted, qe_),
+                torch.searchsorted(e_sorted, qs_, right=True))
+
+    yard_ms = median_ms(sort_and_search, reps=15, per_batch=10)
     # K5 reads each interval and query bound once (int32) and writes int32
     # counts.  Its function needs far fewer operations than the 3 a pair
-    # (two compares, an add) K5 spends on every pair: where an interval and
-    # a query are both non-empty, the count is N - #{s >= qe} - #{e <= qs},
-    # two sorts of the N bounds (N * ceil(log2 N) compares each) and two
-    # binary searches and two subtractions a query.  The pairs of an empty
-    # or inverted interval or query (none in this run) are counted at 3
-    # operations each.
-    lg = max(1, (n_iv - 1).bit_length())
-    s_, e_, qs_, qe_ = rc.args
-    n_bad, q_bad = int((s_ >= e_).sum()), int((qs_ >= qe_).sum())
+    # (two compares, an add) of testing every pair.  Two known methods, the
+    # smaller counted: sorting the intervals (two sorts of the N bounds, N *
+    # ceil(log2 N) compares each, then two binary searches and two
+    # subtractions a query), or indexing the queries (a sort of each query
+    # tile, T * ceil(log2 T) compares a bound, then two binary searches of
+    # ceil(log2 T) steps an interval a tile).  Either must still test the
+    # pairs that F = #{s < qe} - #{e <= qs} miscounts, at 3 operations
+    # each: the intervals with s >= e against the queries with qs <= qe,
+    # and every interval against the inverted queries (none in this run).
+    lg_n = max(1, (n_iv - 1).bit_length())
+    tile = ck.range_stab_tile(n_q)
+    tiles = -(-n_q // tile)
+    lg_t = max(1, (tile - 1).bit_length())
+    n_bad = int((s_ >= e_).sum())
+    q_inv = int((qs_ > qe_).sum())
+    corr_pairs = n_bad * (n_q - q_inv) + n_iv * q_inv
     k5_bytes = 4 * 2 * n_iv + 4 * 2 * n_q + 4 * n_q
-    k5_ops = 2 * n_iv * lg + 2 * n_q * (lg + 1) \
-        + 3 * (n_bad * n_q + q_bad * n_iv)
+    by_sorting = 2 * n_iv * lg_n + 2 * n_q * (lg_n + 1)
+    by_index = 2 * n_q * lg_t + tiles * 2 * n_iv * lg_t
+    k5_ops = min(by_sorting, by_index) + 3 * corr_pairs
     k5_bound, k5_by = bound(k5_bytes, k5_ops)
     k5_brute_ops = 3 * n_iv * n_q
     log(f"[rangestress] {json.dumps(rs)}")
     log(f"[rangestress] launches {rs_launches}; total {rc.edges} == "
         f"{bench.RANGESTRESS_EDGES}; K5 == the chunked plain version == the "
-        f"count by sorting on all {n_q} queries (per query "
+        f"count by sorting == stab_counts_by_query_index on all {n_q} "
+        f"queries (per query "
         f"{int(rc.per_query.min())}-{int(rc.per_query.max())})")
     log(f"[time] K5 range stab {k5_ms:.4f} ms (chunked plain "
         f"{k5_plain_ms:.4f} ms, bound {k5_bound:.6f} ms by {k5_by}: "
-        f"{k5_bytes} bytes, {k5_ops} operations of the count by sorting, "
-        f"{n_bad} empty intervals, {q_bad} empty queries); the brute force "
-        f"K5 runs, 3 operations for each of the {n_iv * n_q} pairs, would "
-        f"take {k5_brute_ops / PEAK_INT32_OPS_PER_S * 1e3:.4f} ms at the "
-        f"int32 rate; no single torch call computes it, so its library_ms "
-        f"is null")
+        f"{k5_bytes} bytes, {k5_ops} operations, the smaller of indexing "
+        f"the queries ({by_index}: {tiles} tile(s) of {tile}) and sorting "
+        f"the intervals ({by_sorting}), {corr_pairs} pairs to correct: "
+        f"{n_bad} intervals with s >= e, {q_inv} inverted queries); apart: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in k5_phases.items())
+        + f"; testing every pair, 3 operations for each of the "
+        f"{n_iv * n_q} pairs, would take "
+        f"{k5_brute_ops / PEAK_INT32_OPS_PER_S * 1e3:.4f} ms at the int32 "
+        f"rate")
+    log(f"[time] yardstick, a composition of library calls: torch.sort of "
+        f"the starts and of the ends and two torch.searchsorted, "
+        f"{yard_ms:.4f} ms; no single torch call computes K5's function, so "
+        f"its library_ms is null")
+
+    # K5's fixed cost (the lane's first 10^4 intervals) and three stress
+    # inputs: one hot bin, the store's pads, every query inverted
+    hot_s = torch.full_like(s_, 500_000_000)
+    pad = torch.zeros(127, dtype=torch.int32, device=dev)
+    stress = {
+        "the lane's first 10^4 intervals": (s_[:10_000], e_[:10_000], qs_,
+                                            qe_),
+        "10^6 copies of one interval [5e8, 5.004e8) (one hot bin)":
+            (hot_s, hot_s + 400_000, qs_, qe_),
+        "127 [0, 0) intervals and 127 [0, 0) queries added":
+            tuple(torch.cat([a, pad]) for a in rc.args),
+        "every query inverted (qs and qe swapped)": (s_, e_, qe_, qs_),
+    }
+    for label, args in stress.items():
+        got = ck.range_stab_counts_cuda(*args)
+        check(torch.equal(got, range_kernel.stab_counts_by_query_index(*args))
+              and torch.equal(got, torch.cat(range_kernel.stab_counts_chunked(
+                  *args))[:args[2].shape[0]]),
+              f"K5 != the plain versions on the stress input {label}")
+        # the pairwise pass over 10^10 pairs takes ms, not us: fewer reps
+        reps, per_batch = (3, 1) if "inverted" in label else (15, 10)
+        ms = median_ms(lambda: ck.range_stab_counts_cuda(*args), reps=reps,
+                       per_batch=per_batch)
+        apart = ck.range_stab_phases(*args, reps=reps, per_batch=per_batch)
+        log(f"[time] K5 on {label}: N={args[0].shape[0]} "
+            f"Q={args[2].shape[0]} total {int(got.sum(dtype=torch.int64))} "
+            f"== both plain versions; {ms:.4f} ms; apart: "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in apart.items()))
 
     kernels = [
         {"name": "deps_tile", "route": "cuda",

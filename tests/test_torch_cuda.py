@@ -24,7 +24,8 @@ from accord_tpu_torch.tpcc import window_oracle
 from accord_tpu_torch.utils.random_source import RandomSource
 from accord_tpu_torch.workload import (build_world, keyset_cases,
                                        large_keyset_window, random_world,
-                                       range_cases, recovery_world)
+                                       range_cases, range_index_cases,
+                                       recovery_world)
 
 pytestmark = pytest.mark.cuda
 
@@ -261,6 +262,35 @@ def test_range_stab_kernel_matches_plain(card, case):
     assert cuda_kernels.RANGE_STAB.launches == before + 1
     assert torch.equal(got, range_kernel.range_stab_counts(s, e, qs, qe)), \
         label
+
+
+@pytest.mark.parametrize("case", range(10))
+def test_range_stab_kernel_index_cases(card, case):
+    """K5 == the dense plain version == stab_counts_by_query_index on
+    workload.range_index_cases: inverted intervals and queries, [0, 0)
+    pads against [0, 0) queries, tied bounds, one hot bin, three query
+    tiles, N = 0, Q = 1, N = 1; one launch a call."""
+    label, *arrays = range_index_cases()[case]
+    s, e, qs, qe = (torch.from_numpy(a).to(card) for a in arrays)
+    before = cuda_kernels.RANGE_STAB.launches
+    got = cuda_kernels.range_stab_counts_cuda(s, e, qs, qe)
+    assert cuda_kernels.RANGE_STAB.launches == before + 1
+    assert torch.equal(got, range_kernel.range_stab_counts(s, e, qs, qe)), \
+        label
+    assert torch.equal(got, range_kernel.stab_counts_by_query_index(
+        s, e, qs, qe)), label
+
+
+def test_range_stab_phases_time_each_launch(card):
+    """range_stab_phases gives a positive CUDA-event time for each of K5's
+    four launches, and the buffers it timed on still count right."""
+    _, *arrays = range_index_cases()[6]   # inverted and empty bounds
+    args = [torch.from_numpy(a).to(card) for a in arrays]
+    times = cuda_kernels.range_stab_phases(*args, reps=3, per_batch=2)
+    assert list(times) == list(cuda_kernels.RANGE_STAB_PHASES)
+    assert all(t > 0 for t in times.values()), times
+    assert torch.equal(cuda_kernels.range_stab_counts_cuda(*args),
+                       range_kernel.range_stab_counts(*args))
 
 
 def test_recovery_scans_on_card_match_cpu(card):

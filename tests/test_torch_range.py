@@ -4,7 +4,11 @@
 seeded int32 intervals and queries: negatives, [0, 0) pads, touching bounds,
 bounds at -2**31 and 2**31-1, and a ragged tail chunk (whose padded [0, 0)
 queries must count as the JAX package counts them).  The rangestress lane's
-total at a reduced size against a count by sorting.  Tolerance: ==.
+total at a reduced size against a count by sorting.  K5's algorithm in
+plain torch (``stab_counts_by_query_index``) on those inputs and on
+``workload.range_index_cases``: inverted intervals and queries, [0, 0)
+pads against [0, 0) queries, tied bounds, one hot bin, several query
+tiles, N = 0, Q = 1, N = 1.  Tolerance: ==.
 """
 
 import numpy as np
@@ -60,6 +64,37 @@ def test_range_stab_counts_cuda_takes_plain_on_cpu():
     got = cuda_kernels.range_stab_counts_cuda(*t)
     assert cuda_kernels.RANGE_STAB.launches == before
     assert torch.equal(got, range_kernel.range_stab_counts(*t))
+
+
+@pytest.mark.parametrize("cases,case", [("range", i) for i in CASES]
+                         + [("index", i) for i in range(10)])
+def test_stab_counts_by_query_index_matches_jax(cases, case):
+    """The query index's identity, count = F + C, with its tie conventions
+    (#{qe <= s}, #{qs < e}) and its two correction sets, == the JAX
+    package's dense count; the dense plain version too."""
+    label, s, e, qs, qe = (workload.range_cases() if cases == "range"
+                           else workload.range_index_cases())[case]
+    t = [torch.from_numpy(a) for a in (s, e, qs, qe)]
+    want = np.asarray(jax_range.range_stab_counts(s, e, qs, qe))
+    got = range_kernel.stab_counts_by_query_index(*t)
+    assert got.dtype == torch.int32 and got.shape == (len(qs),)
+    assert np.array_equal(got.numpy(), want), label
+    assert np.array_equal(range_kernel.range_stab_counts(*t).numpy(),
+                          want), label
+
+
+def test_range_stab_cuda_wrappers_on_cpu_launch_nothing():
+    """On every index case's CPU tensors K5's wrapper runs the plain version
+    and launches nothing; its phase timer takes CUDA tensors only."""
+    before = cuda_kernels.RANGE_STAB.launches
+    for label, *arrays in workload.range_index_cases():
+        t = [torch.from_numpy(a) for a in arrays]
+        assert torch.equal(cuda_kernels.range_stab_counts_cuda(*t),
+                           range_kernel.range_stab_counts(*t)), label
+    assert cuda_kernels.RANGE_STAB.launches == before
+    with pytest.raises(ValueError):
+        cuda_kernels.range_stab_phases(*t)
+    assert cuda_kernels.RANGE_STAB.launches == before
 
 
 def test_rangestress_inputs_match_bench_and_sorting():
