@@ -40,10 +40,20 @@
 //  * at most 64 registers a thread, so four blocks fit an SM: the default
 //    window's 512 blocks then run in one wave on 132 SMs, not in a full wave
 //    and a partial one.
-// Any E, B and K are taken: a row whose start is not 16-byte aligned (E not
-// a multiple of 16) is written byte by byte, and the packed touches live in
-// a global scratch buffer of ceil(B/32) * K words that the wrapper
-// allocates.
+// Any E, B and K are taken: a row whose start is 16-byte aligned is written
+// as 16-byte stores, one that is 8-byte aligned (E a multiple of 8, as the
+// sharded encoder pads it) as pairs of 8-byte stores, any other byte by
+// byte; the packed touches live in a global scratch buffer of
+// ceil(B/32) * K words that the wrapper allocates.
+//
+// The shard axis (accord_tpu/ops/sharded.py::make_sharded_step, where each
+// device of the mesh runs the tile on its key block and the counts are
+// psum'd): S shards in ONE packing launch and ONE tile launch.  Touches are
+// [B, S*Ks] (shard s owns columns [s*Ks, (s+1)*Ks)), the entry arrays
+// [S, Es] with local key indices, the mask [S, B, Es].  The tile's grid adds
+// the shard as its z axis: an entry of shard s reads the packed word at
+// column s*Ks + key and writes plane s; every shard's row counts go to the
+// one count[B], which is the psum.  The flat window is the case S = 1.
 
 #include <climits>
 #include <cstdint>
@@ -100,8 +110,14 @@ __device__ __forceinline__ uint32_t row_bytes(uint32_t a, uint32_t b,
   return __byte_perm(lo, hi, 0x5410) & 0x01010101u;
 }
 
+// kStacked: more than one shard (blockIdx.z picks it); a flat window has
+// none of the shard offsets.  kRows16: every row starts on a 16-byte
+// boundary (E a multiple of 16, as the flat encoder pads it), so each is
+// written as 16-byte stores alone; otherwise each row's alignment picks
+// its stores
+template <bool kStacked, bool kRows16>
 __global__ void __launch_bounds__(kThreads, 4)
-deps_tile_kernel(const uint32_t* __restrict__ tbits, int K,
+deps_tile_kernel(const uint32_t* __restrict__ tbits, int K, int Ks,
                  const int32_t* __restrict__ entry_key,
                  const int32_t* __restrict__ entry_rank,
                  const int32_t* __restrict__ entry_eat,
@@ -120,6 +136,20 @@ deps_tile_kernel(const uint32_t* __restrict__ tbits, int K,
   const int lane = tid & 31;
   const int e0 = (blockIdx.x * kThreads + tid) * kEntriesPerThread;
   const int b0 = blockIdx.y * kRowsPerBlock;
+  // shard s: its entries, its key block's packed words and its mask plane
+  const uint32_t* __restrict__ tcol =
+      tbits + static_cast<size_t>(blockIdx.y) * K;
+  if (kStacked) {
+    const size_t shard = blockIdx.z;
+    entry_key += shard * E;
+    entry_rank += shard * E;
+    entry_eat += shard * E;
+    entry_status += shard * E;
+    entry_kind += shard * E;
+    succ_w += shard * E;
+    tcol += shard * Ks;
+    dep += shard * B * static_cast<size_t>(E);
+  }
   const int rows = min(kRowsPerBlock, B - b0);
   const uint32_t all_rows = rows == 32 ? 0xffffffffu : (1u << rows) - 1;
 
@@ -163,7 +193,7 @@ deps_tile_kernel(const uint32_t* __restrict__ tbits, int K,
       mask[g + j] = 0;
       const bool live = e0 + g + j < E && rank[j] >= 0
           && st[j] > kTransitivelyKnown && st[j] != kInactive && key[j] >= 0
-          && key[j] < K && static_cast<unsigned>(kind[j]) < 32u;
+          && key[j] < Ks && static_cast<unsigned>(kind[j]) < 32u;
       if (!live) continue;
       const bool elidable = st[j] >= kCommitted && st[j] <= kApplied
           && succ[j] > eat[j];
@@ -182,12 +212,11 @@ deps_tile_kernel(const uint32_t* __restrict__ tbits, int K,
       }
       if (in_range)
         mask[g + j] = in_range & witnesses[kind[j]]
-            & tbits[static_cast<size_t>(blockIdx.y) * K + key[j]];
+            & tcol[key[j]];
     }
   }
 
-  const bool vector_store = (E & 15) == 0
-      && (reinterpret_cast<uintptr_t>(dep) & 15) == 0;
+  const bool full = e0 + kEntriesPerThread <= E;
   int my_row = 0;  // lane i: the warp's count of row i
 #pragma unroll
   for (int i = 0; i < kRowsPerBlock; ++i) {
@@ -199,8 +228,14 @@ deps_tile_kernel(const uint32_t* __restrict__ tbits, int K,
       const uint32_t w3 = row_bytes(mask[12], mask[13], mask[14], mask[15], i);
       n = static_cast<int>(((w0 + w1 + w2 + w3) * 0x01010101u) >> 24);
       uint8_t* out = dep + static_cast<size_t>(b0 + i) * E + e0;
-      if (vector_store) {
+      // a row's alignment is the same for the warp's 32 lanes (e0 steps by
+      // 16), so each branch is taken by the whole warp
+      const unsigned align = reinterpret_cast<uintptr_t>(out) & 15u;
+      if (kRows16 || (full && align == 0)) {
         __stcs(reinterpret_cast<uint4*>(out), make_uint4(w0, w1, w2, w3));
+      } else if (full && align == 8) {
+        __stcs(reinterpret_cast<uint2*>(out), make_uint2(w0, w1));
+        __stcs(reinterpret_cast<uint2*>(out + 8), make_uint2(w2, w3));
       } else {
         for (int j = 0; j < kEntriesPerThread && e0 + j < E; ++j) {
           const uint32_t w = j < 4 ? w0 : j < 8 ? w1 : j < 12 ? w2 : w3;
@@ -221,22 +256,27 @@ deps_tile_kernel(const uint32_t* __restrict__ tbits, int K,
 extern "C" {
 
 // Launches the packing pass (which also zeroes count) when phases & 1 and
-// the tile when phases & 2, on `stream`.  All pointers are device pointers
-// to contiguous arrays: touches uint8 [B, K]; the seven int32 vectors [E] or
-// [B] as named; scratch uint32 [ceil(B/32) * K]; dep uint8 [B, E]; count
-// int32 [B].  The tile alone (phases 2) needs the scratch and zeroed counts
-// of an earlier packing pass.  Returns the cudaError_t of the first launch
-// that failed (0 on success).
-int deps_tile_launch(const void* touches, int K, const void* entry_key,
+// the tile when phases & 2, on `stream`, for S shards of Ks keys and E
+// entries each (S = 1 for a flat window).  All pointers are device pointers
+// to contiguous arrays: touches uint8 [B, S*Ks]; the six entry arrays int32
+// [S, E] (keys local to their shard); txn_rank and txn_wit int32 [B];
+// scratch uint32 [ceil(B/32) * S*Ks]; dep uint8 [S, B, E]; count int32 [B],
+// summed over the shards.  The tile alone (phases 2) needs the scratch and
+// zeroed counts of an earlier packing pass.  Returns the cudaError_t of the
+// first launch that failed (0 on success).
+int deps_tile_launch(const void* touches, int S, int Ks, const void* entry_key,
                      const void* entry_rank, const void* entry_eat,
                      const void* entry_status, const void* entry_kind,
                      const void* succ_w, const void* txn_rank,
                      const void* txn_wit, int B, int E, void* scratch,
                      void* dep, void* count, int phases, void* stream) {
-  if (B <= 0 || E <= 0 || K <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || E <= 0 || S <= 0 || Ks <= 0 || S > INT_MAX / Ks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int K = S * Ks;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned words = (static_cast<unsigned>(B) + 31) / 32;
-  if (words > 65535u) return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (words > 65535u || S > 65535)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   if (phases & 1) {
     const dim3 pack_grid((K + kPackThreads - 1) / kPackThreads, words);
     pack_touches_kernel<<<pack_grid, kPackThreads, 0, s>>>(
@@ -246,9 +286,15 @@ int deps_tile_launch(const void* touches, int K, const void* entry_key,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (phases & 2) {
-    const dim3 grid((E + kEntriesPerBlock - 1) / kEntriesPerBlock, words);
-    deps_tile_kernel<<<grid, kThreads, 0, s>>>(
-        static_cast<const uint32_t*>(scratch), K,
+    const dim3 grid((E + kEntriesPerBlock - 1) / kEntriesPerBlock, words, S);
+    const bool rows16 = E % 16 == 0
+        && (reinterpret_cast<uintptr_t>(dep) & 15) == 0;
+    auto* kernel = S > 1 ? (rows16 ? deps_tile_kernel<true, true>
+                                   : deps_tile_kernel<true, false>)
+                         : (rows16 ? deps_tile_kernel<false, true>
+                                   : deps_tile_kernel<false, false>);
+    kernel<<<grid, kThreads, 0, s>>>(
+        static_cast<const uint32_t*>(scratch), K, Ks,
         static_cast<const int32_t*>(entry_key),
         static_cast<const int32_t*>(entry_rank),
         static_cast<const int32_t*>(entry_eat),

@@ -3,7 +3,9 @@
 The host encodes one flush window into dense int32 ranks (ops/encode.py);
 the device computes the [B, E] dependency mask (ops/deps_kernel.py), the
 in-window conflict graph, and the execution waves (ops/wavefront.py), fused
-in ops/sharded.py::resolve_step.  On the card the mask and the waves run as
+in ops/sharded.py::resolve_step; ops/sharded.py also splits a window over
+key-range shards (ShardedEncoder, make_sharded_step), stacked on one device
+or one shard a rank of a torch.distributed group.  On the card the mask and the waves run as
 hand-written CUDA kernels (ops/cuda_kernels.py, sources in csrc/); the plain
 PyTorch versions are the CPU path and the oracle the kernels are held == to.
 The TPC-C replay's key-set windows (ops/keyset.py) and the rangestress
@@ -25,7 +27,9 @@ from accord_tpu_torch.ops.deps_kernel import (batched_active_deps,
 from accord_tpu_torch.ops.wavefront import execution_waves, waves_oracle
 from accord_tpu_torch.ops.keyset import (cross_window_deps, keyset_windows,
                                          shared_keys)
-from accord_tpu_torch.ops.sharded import resolve_step
+from accord_tpu_torch.ops.sharded import (ShardedEncoder,
+                                          make_sharded_deps_step,
+                                          make_sharded_step, resolve_step)
 from accord_tpu_torch.ops.range_kernel import (range_stab_counts,
                                                range_stab_mask,
                                                stab_counts_chunked)
@@ -42,6 +46,7 @@ __all__ = [
     "BatchEncoder", "DeviceState", "DeviceBatch", "scalar_deps_oracle",
     "window_to_tensors", "batched_active_deps", "conflict_edges",
     "in_batch_graph", "execution_waves", "waves_oracle", "resolve_step",
+    "ShardedEncoder", "make_sharded_step", "make_sharded_deps_step",
     "shared_keys", "keyset_windows", "cross_window_deps",
     "range_stab_counts", "range_stab_mask", "stab_counts_chunked",
     "RecoveryEncoder", "batched_recovery_scans",

@@ -128,8 +128,8 @@ class Kernel:
 
 
 DEPS_TILE = Kernel("deps_tile", "deps_tile.cu", {
-    "deps_tile_launch": ((_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
-                          _P, _P, _I, _P), _I),
+    "deps_tile_launch": ((_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                          _P, _P, _P, _I, _P), _I),
     "deps_tile_error_string": ((_I,), ctypes.c_char_p),
 })
 WAVEFRONT = Kernel("wavefront", "wavefront.cu", {
@@ -199,42 +199,66 @@ def _require(t: torch.Tensor, name: str, dtype: torch.dtype,
                          f"{'' if t.is_contiguous() else ' non-contiguous'}")
 
 
-def _deps_tile_shape(touches, entry_key, entry_rank, entry_eat_rank,
-                       entry_status, entry_kind, succ_w, txn_rank,
-                       txn_witness_mask):
-    """Checks K1's inputs on one CUDA device -> (device, B, E, K)."""
-    dev = _cuda_device((touches, entry_key, entry_rank, entry_eat_rank,
-                        entry_status, entry_kind, succ_w, txn_rank,
-                        txn_witness_mask))
-    if touches.dim() != 2:
-        raise ValueError(f"touches: expected [B, K], got {tuple(touches.shape)}")
-    b, k = touches.shape
-    e = entry_rank.shape[0]
-    _require(touches, "touches", torch.bool, (b, k))
-    for name, t in (("entry_key", entry_key), ("entry_rank", entry_rank),
-                    ("entry_eat_rank", entry_eat_rank),
-                    ("entry_status", entry_status),
-                    ("entry_kind", entry_kind), ("succ_w", succ_w)):
-        _require(t, name, torch.int32, (e,))
-    _require(txn_rank, "txn_rank", torch.int32, (b,))
-    _require(txn_witness_mask, "txn_witness_mask", torch.int32, (b,))
-    if (b + 31) // 32 > 65535 or max(e, k) >= 2 ** 31:
-        raise ValueError(f"window too large for the deps tile: B={b} E={e} K={k}")
-    return dev, b, e, k
+class _DepsTileShape:
+    """K1's checked inputs: S shards of Ks keys and E entries over B rows
+    (S = 1 for a flat window) and the shape of the mask it writes."""
+
+    __slots__ = ("dev", "s", "ks", "b", "e", "mask_shape")
+
+    def __init__(self, touches, entry_key, entry_rank, entry_eat_rank,
+                 entry_status, entry_kind, succ_w, txn_rank,
+                 txn_witness_mask):
+        self.dev = _cuda_device((touches, entry_key, entry_rank,
+                                 entry_eat_rank, entry_status, entry_kind,
+                                 succ_w, txn_rank, txn_witness_mask))
+        if touches.dim() != 2 or entry_rank.dim() not in (1, 2):
+            raise ValueError(f"expected touches [B, K] and entry arrays [E] "
+                             f"or [S, E], got {tuple(touches.shape)} and "
+                             f"{tuple(entry_rank.shape)}")
+        b, k = touches.shape
+        stacked = entry_rank.dim() == 2
+        s = entry_rank.shape[0] if stacked else 1
+        e = entry_rank.shape[-1]
+        ks = deps_kernel.shard_width(touches, s)
+        _require(touches, "touches", torch.bool, (b, k))
+        for name, t in (("entry_key", entry_key), ("entry_rank", entry_rank),
+                        ("entry_eat_rank", entry_eat_rank),
+                        ("entry_status", entry_status),
+                        ("entry_kind", entry_kind), ("succ_w", succ_w)):
+            _require(t, name, torch.int32, tuple(entry_rank.shape))
+        _require(txn_rank, "txn_rank", torch.int32, (b,))
+        _require(txn_witness_mask, "txn_witness_mask", torch.int32, (b,))
+        if (b + 31) // 32 > 65535 or s > 65535 or max(e, k) >= 2 ** 31:
+            raise ValueError(f"window too large for the deps tile: S={s} "
+                             f"B={b} E={e} K={k}")
+        self.s, self.ks, self.b, self.e = s, ks, b, e
+        self.mask_shape = (s, b, e) if stacked else (b, e)
+
+    def empty(self) -> bool:
+        return 0 in (self.b, self.e, self.ks)
+
+    def buffers(self):
+        """(packed touches, mask, counts), uninitialised: K1 writes all
+        three (its packing launch zeroes the counts)."""
+        words = ((self.b + 31) // 32) * self.s * self.ks
+        return (torch.empty(words, dtype=torch.int32, device=self.dev),
+                torch.empty(self.mask_shape, dtype=torch.bool, device=self.dev),
+                torch.empty(self.b, dtype=torch.int32, device=self.dev))
 
 
-def _deps_tile_launch(args, b, e, k, packed, dep, count, phases):
+def _deps_tile_launch(args, shape, packed, dep, count, phases):
     (touches, entry_key, entry_rank, entry_eat_rank, entry_status, entry_kind,
      succ_w, txn_rank, txn_witness_mask) = args
     lib = DEPS_TILE.lib()
     with torch.cuda.device(dep.device):
         stream = torch.cuda.current_stream(dep.device).cuda_stream
         code = lib.deps_tile_launch(
-            touches.data_ptr(), k, entry_key.data_ptr(), entry_rank.data_ptr(),
-            entry_eat_rank.data_ptr(), entry_status.data_ptr(),
-            entry_kind.data_ptr(), succ_w.data_ptr(), txn_rank.data_ptr(),
-            txn_witness_mask.data_ptr(), b, e, packed.data_ptr(),
-            dep.data_ptr(), count.data_ptr(), phases, stream)
+            touches.data_ptr(), shape.s, shape.ks, entry_key.data_ptr(),
+            entry_rank.data_ptr(), entry_eat_rank.data_ptr(),
+            entry_status.data_ptr(), entry_kind.data_ptr(), succ_w.data_ptr(),
+            txn_rank.data_ptr(), txn_witness_mask.data_ptr(), shape.b,
+            shape.e, packed.data_ptr(), dep.data_ptr(), count.data_ptr(),
+            phases, stream)
     DEPS_TILE.check(code)
     DEPS_TILE.launches += 1
 
@@ -242,20 +266,27 @@ def _deps_tile_launch(args, b, e, k, packed, dep, count, phases):
 def deps_tile_cuda(touches, entry_key, entry_rank, entry_eat_rank,
                    entry_status, entry_kind, succ_w, txn_rank,
                    txn_witness_mask):
-    """K1 on CUDA tensors, ``deps_kernel.deps_tile`` on CPU tensors.
-    -> (dep_mask[B, E] bool, dep_count[B] int32)."""
+    """K1 on CUDA tensors, its plain version on CPU tensors.
+
+    Entry arrays [E] (a flat window, ``deps_kernel.deps_tile``) ->
+    (dep_mask[B, E] bool, dep_count[B] int32).  Entry arrays [S, E] in the
+    sharded key-block layout (touches [B, S*Ks], keys local to their shard,
+    ``deps_kernel.sharded_deps_tile``) -> (dep_mask[S, B, E] bool,
+    dep_count[B] int32 summed over the shards), in one launch pair for all S
+    shards."""
     args = (touches, entry_key, entry_rank, entry_eat_rank, entry_status,
             entry_kind, succ_w, txn_rank, txn_witness_mask)
     if _cuda_device(args) is None:
-        return deps_kernel.deps_tile(*args)
-    dev, b, e, k = _deps_tile_shape(*args)
-    dep = torch.empty((b, e), dtype=torch.bool, device=dev)
-    if b == 0 or e == 0 or k == 0:
-        return dep, torch.zeros(b, dtype=torch.int32, device=dev)
-    count = torch.empty(b, dtype=torch.int32, device=dev)  # zeroed by K1
+        plain = deps_kernel.sharded_deps_tile if entry_rank.dim() == 2 \
+            else deps_kernel.deps_tile
+        return plain(*args)
+    shape = _DepsTileShape(*args)
+    if shape.empty():
+        return (torch.zeros(shape.mask_shape, dtype=torch.bool, device=shape.dev),
+                torch.zeros(shape.b, dtype=torch.int32, device=shape.dev))
     # touches packed to bits, 32 txn rows per word (see csrc/deps_tile.cu)
-    packed = torch.empty(((b + 31) // 32) * k, dtype=torch.int32, device=dev)
-    _deps_tile_launch(args, b, e, k, packed, dep, count, 3)
+    packed, dep, count = shape.buffers()
+    _deps_tile_launch(args, shape, packed, dep, count, 3)
     return dep, count
 
 
@@ -263,17 +294,15 @@ def deps_tile_phases(*args):
     """K1's two launches apart, for timing them: -> (pack, tile), two
     functions of no argument that launch the packing pass (which zeroes the
     counts) and the tile on buffers of their own.  The tile reads what the
-    last pack wrote; each launch counts as one of K1's.  CUDA tensors only,
-    and a non-empty window."""
-    dev, b, e, k = _deps_tile_shape(*args)
-    if dev is None or 0 in (b, e, k):
+    last pack wrote; each launch counts as one of K1's.  CUDA tensors only
+    (a flat or a stacked window), and a non-empty window."""
+    shape = _DepsTileShape(*args)
+    if shape.dev is None or shape.empty():
         raise ValueError("deps_tile_phases times K1 on a non-empty window of "
                          "CUDA tensors")
-    dep = torch.empty((b, e), dtype=torch.bool, device=dev)
-    count = torch.empty(b, dtype=torch.int32, device=dev)
-    packed = torch.empty(((b + 31) // 32) * k, dtype=torch.int32, device=dev)
+    packed, dep, count = shape.buffers()
     return tuple(
-        (lambda ph=ph: _deps_tile_launch(args, b, e, k, packed, dep, count, ph))
+        (lambda ph=ph: _deps_tile_launch(args, shape, packed, dep, count, ph))
         for ph in (1, 2))
 
 
@@ -281,15 +310,18 @@ def batched_active_deps_cuda(entry_rank, entry_eat_rank, entry_key,
                              entry_status, entry_kind, txn_rank,
                              txn_witness_mask, touches):
     """Counterpart of ``batched_active_deps_pallas``: succ_w (a sort and a
-    segmented scan) stays plain torch, the [B, E] tile runs in K1.  CPU
-    tensors take ``deps_kernel.batched_active_deps``."""
-    args = (entry_rank, entry_eat_rank, entry_key, entry_status, entry_kind,
-            txn_rank, txn_witness_mask, touches)
-    if _cuda_device(args) is None:
-        return deps_kernel.batched_active_deps(*args)
-    succ_w = deps_kernel.successor_write_eat(entry_rank, entry_eat_rank,
-                                             entry_key, entry_status,
-                                             entry_kind)
+    segmented scan) stays plain torch, the tile runs in K1 (on CPU tensors
+    in its plain version, so this is ``deps_kernel.batched_active_deps``).
+    Entry arrays [E] give the flat [B, E] mask; entry arrays [S, E] in the
+    sharded key-block layout give [S, B, E] and the counts summed over the
+    shards, from one succ_w pass and one K1 launch pair for all S."""
+    if entry_rank.dim() == 2:
+        succ_w = deps_kernel.sharded_successor_write_eat(
+            entry_rank, entry_eat_rank, entry_key, entry_status, entry_kind,
+            deps_kernel.shard_width(touches, entry_rank.shape[0]))
+    else:
+        succ_w = deps_kernel.successor_write_eat(
+            entry_rank, entry_eat_rank, entry_key, entry_status, entry_kind)
     return deps_tile_cuda(touches, entry_key, entry_rank, entry_eat_rank,
                           entry_status, entry_kind, succ_w, txn_rank,
                           txn_witness_mask)

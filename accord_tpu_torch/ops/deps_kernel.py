@@ -81,6 +81,30 @@ def successor_write_eat(entry_rank, entry_eat_rank, entry_key, entry_status,
     return _successor_write_eat(entry_key, entry_eat_rank, write_eat)
 
 
+def shard_width(touches: torch.Tensor, n_shards: int) -> int:
+    """Ks, the keys of each shard's block in touches [B, S*Ks]."""
+    if n_shards <= 0 or touches.shape[1] % n_shards:
+        raise ValueError(f"touches' {touches.shape[1]} columns do not split "
+                         f"into {n_shards} shards' key blocks")
+    return touches.shape[1] // n_shards
+
+
+def sharded_successor_write_eat(entry_rank, entry_eat_rank, entry_key,
+                                entry_status, entry_kind, ks: int
+                                ) -> torch.Tensor:
+    """succ_w for S shards' conflict indexes at once: [S, E] arrays whose
+    keys are local to their shard's block of `ks` keys -> [S, E].  The keys
+    are offset by s * ks before the one sort, so no two shards' keys ever
+    share a segment: each entry's successor is its own shard's, as when
+    every device of the mesh computes it on its own block."""
+    offset = ks * torch.arange(entry_key.shape[0], dtype=entry_key.dtype,
+                               device=entry_key.device)[:, None]
+    flat = (a.reshape(-1) for a in (entry_rank, entry_eat_rank,
+                                    entry_key + offset, entry_status,
+                                    entry_kind))
+    return successor_write_eat(*flat).reshape(entry_key.shape)
+
+
 def deps_tile(touches, entry_key, entry_rank, entry_eat_rank, entry_status,
               entry_kind, succ_w, txn_rank, txn_witness_mask):
     """The [B, E] tile given succ_w: the function the CUDA deps tile
@@ -104,6 +128,23 @@ def deps_tile(touches, entry_key, entry_rank, entry_eat_rank, entry_status,
 
     dep = base & ~elided
     return dep, dep.sum(dim=1, dtype=torch.int32)
+
+
+def sharded_deps_tile(touches, entry_key, entry_rank, entry_eat_rank,
+                      entry_status, entry_kind, succ_w, txn_rank,
+                      txn_witness_mask):
+    """The tile over S shards in the key-block layout (touches [B, S*Ks],
+    [S, E] entry arrays with local keys): ``deps_tile`` shard by shard, as
+    each device of the JAX mesh runs it, with the counts summed (the psum
+    over 'shard').  -> (dep_mask[S, B, E] bool, dep_count[B] i32)."""
+    n = entry_key.shape[0]
+    ks = shard_width(touches, n)
+    masks, counts = zip(*(
+        deps_tile(touches[:, i * ks:(i + 1) * ks], entry_key[i],
+                  entry_rank[i], entry_eat_rank[i], entry_status[i],
+                  entry_kind[i], succ_w[i], txn_rank, txn_witness_mask)
+        for i in range(n)))
+    return torch.stack(masks), torch.stack(counts).sum(0, dtype=torch.int32)
 
 
 def batched_active_deps(entry_rank, entry_eat_rank, entry_key, entry_status,

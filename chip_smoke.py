@@ -80,7 +80,22 @@ Phases; any failure raises, exits non-zero and prints no result lines:
     fixed cost) and on three stress inputs, each == the plain versions:
     10^6 copies of one interval (one hot bin), the store's
     127 [0, 0) pad intervals and 127 pad queries added to the lane's, and
-    every query inverted (the pairwise pass over all 10^10 pairs).
+    every query inverted (the pairwise pass over all 10^10 pairs);
+12. the sharded step on phase 4's build_world window split into 8 key-range
+    shards (ShardedEncoder, pad 8), stacked on the card: with the launch
+    counts zeroed just before and read just after, one make_sharded_step
+    call launches K1 once and K2 once; the decoded deps == the scalar
+    oracle, the summed counts == 1,152,177, graph and waves == phase 4's
+    resolve_step; K1's stacked launch == its per-shard plain loop at full
+    size (and with the shards' E cut by 8, the other 16-byte alignment of
+    the planes' rows); S = 1 on phase 4's arrays == resolve_step; the deps
+    step on the same window as probes (ShardedEncoder.for_probes, pad 128),
+    one K1 launch and no other, decode_key_deps == BatchEncoder.for_probes's
+    decode through resolve_step; entry.dryrun_multichip(8) on the card.
+    Then the stacked step's median ms at S = 8 and S = 1 beside
+    resolve_step's, K1's stacked ms at both alignments beside its byte
+    bound and a memset of its [S, B, E] output, the deps step's ms, and
+    the padding factor S*E_shard / E.
 The tolerance everywhere is exact equality: every output is integer or bool.
 
 Then, on lines of their own: the card's name and power limit (nvidia-smi),
@@ -135,12 +150,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     from accord_tpu_torch import bench, tpcc
-    from accord_tpu_torch.entry import entry
+    from accord_tpu_torch.entry import dryrun_multichip, entry
     from accord_tpu_torch.ops import cuda_kernels as ck
     from accord_tpu_torch.ops import (deps_kernel, keyset, range_kernel,
                                       wavefront)
-    from accord_tpu_torch.ops.encode import (BatchEncoder, scalar_deps_oracle,
+    from accord_tpu_torch.ops.encode import (PAD, BatchEncoder,
+                                             scalar_deps_oracle,
                                              window_to_tensors)
+    from accord_tpu_torch.ops.sharded import (ShardedEncoder,
+                                              make_sharded_deps_step,
+                                              make_sharded_step, resolve_step)
     from accord_tpu_torch.ops.recovery_kernel import (RecoveryEncoder,
                                                       batched_recovery_scans,
                                                       scalar_predicates)
@@ -295,8 +314,9 @@ def main() -> int:
 
     dep_mask, dep_count, dep_bb, waves = win.out
     n = len(batch)
-    check(enc.decode_deps(dep_mask.cpu().numpy())
-          == scalar_deps_oracle(cfks, batch), "deps != scalar oracle")
+    oracle = scalar_deps_oracle(cfks, batch)
+    check(enc.decode_deps(dep_mask.cpu().numpy()) == oracle,
+          "deps != scalar oracle")
     scalar_eps, edges = win.scalar_edges_per_sec, win.edges
     check(edges == DEFAULT_EDGES, f"edges {edges} != {DEFAULT_EDGES}")
     check(bool((waves[:n] >= 0).all()), "a txn was left without a wave")
@@ -747,6 +767,127 @@ def main() -> int:
             f"Q={args[2].shape[0]} total {int(got.sum(dtype=torch.int64))} "
             f"== both plain versions; {ms:.4f} ms; apart: "
             + ", ".join(f"{k} {v:.4f} ms" for k, v in apart.items()))
+
+    # ---- 12. the sharded step on the build_world window
+    cfks, batch = world
+    n = len(batch)
+    n_shards = 8
+    t0 = time.perf_counter()
+    sh_enc = ShardedEncoder(cfks, batch, n_shards)
+    sh_args = window_to_tensors(sh_enc.args(), device=dev)
+    flat_args = win.args  # phase 4's arrays
+    e_flat, e_shard = flat_args[0].shape[0], sh_args[0].shape[1]
+    pad_factor = n_shards * e_shard / e_flat
+    log(f"[sharded] ShardedEncoder {time.perf_counter() - t0:.1f}s: "
+        f"S={n_shards} Ks={sh_enc.ks} E_shard={e_shard} "
+        f"B={sh_args[5].shape[0]}; entries a shard "
+        f"{[len(es) for es in sh_enc.entries_per]}; padding factor "
+        f"S*E_shard/E = {n_shards} * {e_shard} / {e_flat} = {pad_factor:.4f}")
+    step8 = make_sharded_step(n_shards)
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    sh_mask, sh_count, sh_bb, sh_waves = step8(*sh_args)
+    torch.cuda.synchronize()
+    sh_launches = {k.name: k.launches for k in ck.KERNELS}
+    check(sh_launches == {"deps_tile": 1, "wavefront": 1,
+                          "keyset_windows": 0, "range_stab": 0},
+          f"the sharded step was not one K1 and one K2 launch: {sh_launches}")
+    check(sh_enc.decode_deps(sh_mask.cpu().numpy()) == oracle,
+          "sharded deps != scalar oracle")
+    sh_edges = int(sh_count.sum())
+    check(sh_edges == DEFAULT_EDGES,
+          f"sharded edges {sh_edges} != {DEFAULT_EDGES}")
+    check(torch.equal(sh_bb[:n, :n], dep_bb[:n, :n])
+          and torch.equal(sh_waves[:n], waves[:n]),
+          "sharded graph or waves != resolve_step's")
+    er_s, eer_s, ek_s, es_s, ekd_s, tr_s, twm_s, _, touches_s = sh_args
+    succ_s = deps_kernel.sharded_successor_write_eat(er_s, eer_s, ek_s, es_s,
+                                                     ekd_s, sh_enc.ks)
+    k1s_args = {}
+    for cut in (0, 8):
+        k1s_args[cut] = (touches_s,) + tuple(
+            a[:, :e_shard - cut].contiguous()
+            for a in (ek_s, er_s, eer_s, es_s, ekd_s, succ_s)) \
+            + (tr_s, twm_s)
+        m_k, c_k = ck.deps_tile_cuda(*k1s_args[cut])
+        m_p, c_p = deps_kernel.sharded_deps_tile(*k1s_args[cut])
+        err["deps_tile"] = max(err["deps_tile"], max_abs_err(m_k, m_p),
+                               max_abs_err(c_k, c_p))
+        check(err["deps_tile"] == 0,
+              f"stacked K1 != its per-shard plain loop, E_shard cut by {cut}")
+    s1_args = tuple(a[None] for a in flat_args[:5]) + flat_args[5:]
+    s1_out = make_sharded_step(1)(*s1_args)
+    check(torch.equal(s1_out[0][0], dep_mask)
+          and all(torch.equal(a, b) for a, b in zip(s1_out[1:], win.out[1:])),
+          "the sharded step at S = 1 != resolve_step")
+    log(f"[sharded] launches {sh_launches}; deps == scalar oracle; edges "
+        f"{sh_edges} == {DEFAULT_EDGES}; graph and waves == resolve_step's; "
+        f"stacked K1 == its per-shard plain loop at E_shard {e_shard} "
+        f"({e_shard % 16} mod 16) and {e_shard - 8} ({(e_shard - 8) % 16} mod "
+        f"16); S = 1 == resolve_step")
+
+    probes = [(tid, tid.kind.witnesses(), keys) for tid, keys in batch]
+    t0 = time.perf_counter()
+    pr_enc = ShardedEncoder.for_probes(cfks, probes, n_shards, pad=PAD)
+    pr_args = window_to_tensors(pr_enc.args(), device=dev)
+    pr_deps_args = pr_args[:7] + pr_args[8:]
+    deps_step = make_sharded_deps_step(n_shards)
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    pr_mask, pr_count = deps_step(*pr_deps_args)
+    torch.cuda.synchronize()
+    pr_launches = {k.name: k.launches for k in ck.KERNELS}
+    check(pr_launches == {"deps_tile": 1, "wavefront": 0,
+                          "keyset_windows": 0, "range_stab": 0},
+          f"the sharded deps step was not one K1 launch: {pr_launches}")
+    flat_pr = BatchEncoder.for_probes(cfks, probes)
+    flat_pr_out = resolve_step(*window_to_tensors(flat_pr.state,
+                                                  flat_pr.dbatch, dev))
+    check(pr_enc.decode_key_deps(pr_mask.cpu().numpy())
+          == flat_pr.decode_key_deps(flat_pr_out[0].cpu().numpy()),
+          "sharded probe key deps != BatchEncoder.for_probes's")
+    log(f"[sharded] probes (pad {PAD}): E_shard={pr_args[0].shape[1]} "
+        f"{time.perf_counter() - t0:.1f}s to encode and check; launches "
+        f"{pr_launches}; {int(pr_count.sum())} probe edges; decode_key_deps "
+        f"== BatchEncoder.for_probes's through resolve_step on all "
+        f"{len(probes)} probes")
+    dry = dryrun_multichip(n_shards)
+    log(f"[sharded] dryrun_multichip({n_shards}) on the card: {dry}")
+
+    # the steps one call a batch, as the default lane times resolve_step:
+    # ten calls' host work would outlast the sleep that hides it
+    step8_ms = median_ms(lambda: step8(*sh_args), reps=15)
+    step1 = make_sharded_step(1)
+    step1_ms = median_ms(lambda: step1(*s1_args), reps=15)
+    flat_step_ms = median_ms(lambda: resolve_step(*flat_args), reps=15)
+    k1s_ms = {cut: median_ms(lambda a=a: ck.deps_tile_cuda(*a), reps=15,
+                             per_batch=10) for cut, a in k1s_args.items()}
+    k1s_memset_ms = median_ms(lambda: sh_mask.zero_(), reps=15, per_batch=10)
+    deps_step_ms = median_ms(lambda: deps_step(*pr_deps_args), reps=15)
+    # K1 on the stack moves each input once (touches B*S*Ks bytes, six int32
+    # [S, E_shard] arrays, two int32 [B]) and writes the S*B*E_shard mask and
+    # the int32 counts
+    b_s, k_s = touches_s.shape
+
+    def k1s_bytes(e):
+        return b_s * k_s + 6 * 4 * n_shards * e + 2 * 4 * b_s \
+            + n_shards * b_s * e + 4 * b_s
+
+    k1s_bound = {cut: k1s_bytes(e_shard - cut) / PEAK_BYTES_PER_S * 1e3
+                 for cut in k1s_args}
+    log(f"[time] sharded step S = {n_shards} {step8_ms:.4f} ms, S = 1 "
+        f"{step1_ms:.4f} ms, resolve_step {flat_step_ms:.4f} ms (the same "
+        f"window, one call); the deps step on the probes "
+        f"{deps_step_ms:.4f} ms")
+    log(f"[time] K1 stacked S = {n_shards}: "
+        + ", ".join(f"E_shard {e_shard - cut} ({(e_shard - cut) % 16} mod 16) "
+                    f"{k1s_ms[cut]:.4f} ms, byte bound "
+                    f"{k1s_bound[cut]:.4f} ms ({k1s_bytes(e_shard - cut)} "
+                    f"bytes, of which the mask "
+                    f"{n_shards * b_s * (e_shard - cut)})"
+                    for cut in k1s_args)
+        + f"; a memset of the [S, B, E_shard] mask {k1s_memset_ms:.4f} ms; "
+        f"flat K1 {k1_ms:.4f} ms; padding factor {pad_factor:.4f}")
 
     kernels = [
         {"name": "deps_tile", "route": "cuda",

@@ -20,6 +20,7 @@ from accord_tpu_torch.ops.encode import BatchEncoder, window_to_tensors
 from accord_tpu_torch.ops.recovery_kernel import (RecoveryEncoder,
                                                   batched_recovery_scans,
                                                   scalar_predicates)
+from accord_tpu_torch.ops.sharded import ShardedEncoder, make_sharded_step
 from accord_tpu_torch.tpcc import window_oracle
 from accord_tpu_torch.utils.random_source import RandomSource
 from accord_tpu_torch.workload import (build_world, keyset_cases,
@@ -76,6 +77,54 @@ def test_deps_tile_kernel_ragged_matches_plain(card, cut_e, cut_b):
     assert torch.equal(mask, want_mask)
     assert torch.equal(count, want_count)
     assert int(count.sum()) > 0
+
+
+def _sharded_world(n_shards):
+    """S = 1 over 30 keys; S = 2 over 16,500 keys (K = 16,500, above the
+    Pallas tile's 16,384); S = 8 over 5 keys (three shards hold no key and
+    no entry: all pads)."""
+    if n_shards == 2:
+        return build_world(n_keys=16500, n_existing=500, n_batch=130, seed=5)
+    n_keys = 30 if n_shards == 1 else 5
+    return random_world(RandomSource(840 + n_shards), n_keys=n_keys,
+                        n_existing=300, n_batch=150)
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 8])
+def test_deps_tile_kernel_stacked_matches_plain(card, n_shards):
+    """K1 over S shards in one launch pair == its per-shard plain loop, with
+    E as encoded (a multiple of 8) and cut by 8 (so one of the two is 8 mod
+    16: every other row of a plane starts off a 16-byte boundary) and by 3
+    (the byte-wise rows); then the sharded step launches K1 once and K2 once
+    whatever S, == the step on the CPU."""
+    cfks, batch = _sharded_world(n_shards)
+    enc = ShardedEncoder(cfks, batch, n_shards)
+    args = window_to_tensors(enc.args(), device=card)
+    er, eer, ek, es, ekd, tr, twm, _, touches = args
+    succ = deps_kernel.sharded_successor_write_eat(er, eer, ek, es, ekd,
+                                                   enc.ks)
+    e = er.shape[1]
+    assert {(e - cut) % 16 for cut in (0, 8)} == {0, 8}
+    for cut in (0, 8, 3):
+        entries = tuple(a[:, :e - cut].contiguous()
+                        for a in (ek, er, eer, es, ekd, succ))
+        k1_args = (touches,) + entries + (tr, twm)
+        before = cuda_kernels.DEPS_TILE.launches
+        mask, count = cuda_kernels.deps_tile_cuda(*k1_args)
+        assert cuda_kernels.DEPS_TILE.launches == before + 1
+        want_mask, want_count = deps_kernel.sharded_deps_tile(*k1_args)
+        assert mask.shape == (n_shards, tr.shape[0], e - cut)
+        assert torch.equal(mask, want_mask), cut
+        assert torch.equal(count, want_count), cut
+    assert int(count.sum()) > 0
+    if n_shards == 8:
+        assert not er[5:].ge(0).any()             # the empty shards
+    cuda_kernels.reset_launch_counts()
+    got = make_sharded_step(n_shards)(*args)
+    assert [k.launches for k in cuda_kernels.KERNELS] == [1, 1, 0, 0]
+    for g, w in zip(got, make_sharded_step(n_shards)(
+            *(a.cpu() for a in args))):
+        assert torch.equal(g.cpu(), w)
 
 
 def _random_dag(rng, n, p):
