@@ -31,7 +31,7 @@ oracle is the raw enumeration of ``local/cfk.py``'s four scans.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -191,6 +191,14 @@ class RecoveryEncoder:
         return sorted({self.entries[e][1]
                        for e in np.nonzero(mask_row[:len(self.entries)])[0]})
 
+    def decode_keyed(self, mask_row: np.ndarray) -> Dict[Key, List[TxnId]]:
+        """One probe's [E] mask -> {key: sorted ids} (for per-key serving)."""
+        out: Dict[Key, List[TxnId]] = {}
+        for e in np.nonzero(mask_row[:len(self.entries)])[0]:
+            ki, tid, _status, _eat = self.entries[e]
+            out.setdefault(self.keys[ki], []).append(tid)
+        return {k: sorted(v) for k, v in out.items()}
+
 
 def scalar_predicates(cfks, probe: TxnId, keys) -> tuple:
     """The four per-probe predicates from the scalar scans, unioned over the
@@ -203,8 +211,10 @@ def scalar_predicates(cfks, probe: TxnId, keys) -> tuple:
     witness, no_witness = set(), set()
     for k in keys:
         cfk = by_key[k]
-        rejects_a |= bool(cfk.started_after_without_witnessing_ids(probe))
-        rejects_b |= bool(cfk.executes_after_without_witnessing_ids(probe))
+        rejects_a |= bool(cfk.started_after_without_witnessing_ids(
+            probe, raw=True))
+        rejects_b |= bool(cfk.executes_after_without_witnessing_ids(
+            probe, raw=True))
         witness.update(cfk.stable_started_before_and_witnessed(probe))
         no_witness.update(cfk.accepted_started_before_without_witnessing(probe))
     return rejects_a, rejects_b, sorted(witness), sorted(no_witness)

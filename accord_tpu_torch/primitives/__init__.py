@@ -1,2 +1,2 @@
-"""Protocol data model the flush window is built from (copies of
-accord_tpu.primitives: timestamps and keys)."""
+"""Protocol data model (copies of accord_tpu.primitives: timestamps, keys
+and ranges, deps, txns and writes)."""

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Proof on one H100 that the port builds and resolves a full flush window,
 the full TPC-C new-order replay, a recovery window and the rangestress lane
-through its hand-written CUDA kernels.
+through its hand-written CUDA kernels, and serves the protocol store's
+flush windows through them.
 
     python3 chip_smoke.py          (from the repository root, on a CUDA card)
 
@@ -96,6 +97,32 @@ Phases; any failure raises, exits non-zero and prints no result lines:
     resolve_step's, K1's stacked ms at both alignments beside its byte
     bound and a memset of its [S, B, E] output, the deps step's ms, and
     the padding factor S*E_shard / E.
+13. the protocol store tier (bench.StoreBench): the default cell's shape,
+    1024 keys at Zipf(0.99), as a store history of 16,384 txns
+    (workload.default_store_plan: flush windows of 512 preaccepts, with
+    every txn accepted one window later in one case of 8, committed stable
+    and applied two windows later) through store.execute and the local state
+    machine's transitions, into a flat DeviceCommandStore and a
+    MeshDeviceCommandStore at S = 8 on the card in lockstep (verify on for
+    the last 8 windows). Then the measured windows, each with verify on
+    (every served scan checked inline against the scalar scan), each store
+    checked after every window for a disabled device tier or a failure its
+    agent recorded, and the launch counts zeroed just before it and read
+    just after: the PreAccept window (512 preaccepts in one flush: one K1
+    launch and no other; the version gate serves exactly the window's
+    first-touch preaccepts and misses the rest, as the JAX store does on the
+    CPU), the same window through the mesh store (one stacked K1 launch;
+    results and counters == the flat store's), a recovery window (512
+    BeginRecovery probes: every recovery scan served, one K1 launch for
+    their deps), a commit window and the Apply window (1536 Applies in one
+    flush: one K2 launch and no other, the waves == the host oracle, every
+    planned Apply executed), then 1024 range txns registered and a range
+    window (448 key-domain and 64 range-domain preaccepts, the range arm
+    served). It prints the history's seconds, E, and per window the wall ms
+    split into the profiler's encode, kernel and decode laps and the rest,
+    hits, misses and their causes; and K1 on the PreAccept window's probes
+    and the copies of its mask and of phase 4's [512, 128,768] mask to the
+    host, timed alone.
 The tolerance everywhere is exact equality: every output is integer or bool.
 
 Then, on lines of their own: the card's name and power limit (nvidia-smi),
@@ -127,6 +154,8 @@ TPCC_IN_WINDOW = 1_616_220
 TPCC_MAX_WAVE = 13
 # bench.bench_default()'s world: the scalar scan's edge count
 DEFAULT_EDGES = 1_152_177
+# phase 13's store history (txns)
+STORE_HISTORY = 16_384
 
 
 def log(msg: str) -> None:
@@ -150,6 +179,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     from accord_tpu_torch import bench, tpcc
+    from accord_tpu_torch.bench import StoreBench
     from accord_tpu_torch.entry import dryrun_multichip, entry
     from accord_tpu_torch.ops import cuda_kernels as ck
     from accord_tpu_torch.ops import (deps_kernel, keyset, range_kernel,
@@ -166,9 +196,10 @@ def main() -> int:
     from accord_tpu_torch.utils.backend import card_name_and_power_limit
     from accord_tpu_torch.utils.random_source import RandomSource
     from accord_tpu_torch.utils.timing import median_ms
-    from accord_tpu_torch.workload import (build_world, keyset_cases,
-                                           random_world, range_cases,
-                                           range_index_cases,
+    from accord_tpu_torch.workload import (build_world, device_counters,
+                                           first_touch_preaccepts,
+                                           keyset_cases, random_world,
+                                           range_cases, range_index_cases,
                                            rangestress_inputs, recovery_world)
 
     dev = torch.device("cuda", 0)
@@ -888,6 +919,148 @@ def main() -> int:
                     for cut in k1s_args)
         + f"; a memset of the [S, B, E_shard] mask {k1s_memset_ms:.4f} ms; "
         f"flat K1 {k1_ms:.4f} ms; padding factor {pad_factor:.4f}")
+
+    # ---- 13. the protocol store tier
+    card = card_name_and_power_limit()
+    sb = StoreBench(n_history=STORE_HISTORY, device=dev, n_shards=n_shards)
+    n_hist = len(sb.plan[1])
+    log(f"[store] {card}: history of {STORE_HISTORY} txns in {n_hist} "
+        f"windows of {sb.window} (default_store_plan: 1024 keys, Zipf "
+        f"0.99, seed 42), flat and mesh (S = {n_shards}) stores in lockstep, "
+        f"verify on for the last {sb.VERIFY_LAST}")
+
+    def hist_progress(w, seconds):
+        if w % 8 == 7:
+            log(f"[store] history window {w + 1}/{n_hist}: {seconds:.1f} s, "
+                f"E {sb.entries()}")
+
+    hist_s = sb.load_history(hist_progress)
+    e_store = sb.entries()
+    hc = device_counters(sb.flat.store)
+    log(f"[store] {card}: history loaded in {hist_s:.1f} s; E = {e_store}; "
+        f"the flat store flushed {hc['device_flush_windows']} windows, "
+        f"{hc['device_batches']} K1 batches of {hc['device_batched_probes']} "
+        f"probes, hits {hc['device_hits']} misses {hc['device_misses']} "
+        f"(no_probe {hc['miss_no_probe']}, version {hc['miss_version']}, "
+        f"key_cover {hc['miss_key_cover']}), waves planned "
+        f"{hc['device_wave_planned']} in {hc['device_wave_batches']} "
+        f"windows, executed {hc['device_wave_executed']}")
+
+    # the PreAccept window's probes, encoded as the flat store will encode
+    # them: K1 and the mask's copy to the host timed alone (not counted)
+    pa_txns = [sb.flat._txn(op[1]) for op in sb.windows["preaccept"]]
+    pa_probes = [(st.txn_id, st.txn_id.kind.witnesses(), list(st.txn.keys))
+                 for st in pa_txns]
+    pa_cfks, _, _ = sb.flat.store._probe_snapshots(pa_probes)
+    pa_enc = BatchEncoder.for_probes(pa_cfks, pa_probes)
+    pa_args = window_to_tensors(pa_enc.state, pa_enc.dbatch, dev)
+    pa_k1 = (*pa_args[:7], pa_args[8])
+    pa_mask = ck.batched_active_deps_cuda(*pa_k1)[0]
+    pa_k1_ms = median_ms(lambda: ck.batched_active_deps_cuda(*pa_k1), 15)
+
+    def host_copy_ms(t, reps=7):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.cpu()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    pa_copy_ms = host_copy_ms(pa_mask)
+    full_copy_ms = host_copy_ms(win.out[0])
+    log(f"[store] {card}: the PreAccept window's [B, E] = "
+        f"{list(pa_mask.shape)} mask ({pa_mask.numel()} bytes): K1 with "
+        f"succ_w {pa_k1_ms:.4f} ms (CUDA events), its copy to the host "
+        f"{pa_copy_ms:.4f} ms; the build_world window's "
+        f"{list(win.out[0].shape)} mask ({win.out[0].numel()} bytes) "
+        f"copied to the host {full_copy_ms:.4f} ms (wall clock, median "
+        f"of 7)")
+
+    def store_log(w, extra=""):
+        c = w.counters
+        serve = w.wall_ms - sum(w.laps.values())
+        log(f"[store] {card}: {w.name} window, {len(w.results)} ops: "
+            f"{w.wall_ms:.1f} ms submit to drain; laps "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in w.laps.items())
+            + f"; the rest (serving the ops) {serve:.1f} ms; hits "
+            f"{c['device_hits']} misses {c['device_misses']} (no_probe "
+            f"{c['miss_no_probe']}, version {c['miss_version']}, key_cover "
+            f"{c['miss_key_cover']}); launches {w.launches}{extra}")
+
+    def outcomes(w):
+        return sorted({r[:2] for r in w.results})
+
+    def only(w, **want):
+        return {k: v for k, v in w.launches.items() if v} == want
+
+    pa = sb.run("preaccept")
+    store_log(pa)
+    check(outcomes(pa) == [("preaccept", "SUCCESS")],
+          f"PreAccept window outcomes {outcomes(pa)}")
+    check(only(pa, deps_tile=1), f"PreAccept window launches {pa.launches}")
+    # the version gate serves exactly the window's first-touch preaccepts
+    # (tests/test_torch_store.py holds the JAX store to the same split)
+    pa_hits = first_touch_preaccepts(sb.plan, sb.windows["preaccept"])
+    check((pa.counters["device_hits"], pa.counters["miss_version"],
+           pa.counters["device_misses"])
+          == (pa_hits, len(pa.results) - pa_hits, len(pa.results) - pa_hits),
+          f"PreAccept window hits/misses {pa.counters}, want {pa_hits} "
+          f"first-touch hits")
+    pa_mesh = sb.run("preaccept", sb.mesh)
+    store_log(pa_mesh, f"; the mesh store, S = {n_shards}")
+    check(pa_mesh.results == pa.results,
+          "the mesh store's PreAccept window != the flat store's")
+    check(only(pa_mesh, deps_tile=1),
+          f"mesh PreAccept window launches {pa_mesh.launches}")
+    check(pa_mesh.counters == pa.counters,
+          f"mesh counters {pa_mesh.counters} != flat {pa.counters}")
+
+    rec = sb.run("recovery")
+    store_log(rec, f"; recovery hits {rec.counters['device_recovery_hits']}"
+              f" misses {rec.counters['device_recovery_misses']}")
+    check(outcomes(rec) == [("recover", "SUCCESS")],
+          f"recovery window outcomes {outcomes(rec)}")
+    check(rec.counters["device_recovery_hits"] > 0
+          and rec.counters["device_recovery_misses"] == 0,
+          f"recovery window {rec.counters}")
+    check(only(rec, deps_tile=1), f"recovery window launches {rec.launches}")
+
+    com = sb.run("commit")
+    store_log(com)
+    check(outcomes(com) == [("commit", "SUCCESS")],
+          f"commit window outcomes {outcomes(com)}")
+    app = sb.run("apply")
+    store_log(app, f"; waves planned {app.counters['device_wave_planned']}, "
+              f"executed {app.counters['device_wave_executed']}, depth "
+              f"{sb.flat.store.device_wave_max_depth}")
+    check(outcomes(app) == [("apply", "SUCCESS")],
+          f"Apply window outcomes {outcomes(app)}")
+    check(only(app, wavefront=1), f"Apply window launches {app.launches}")
+    check(app.counters["device_wave_batches"] == 1
+          and app.counters["device_wave_planned"] == len(app.results)
+          and app.counters["device_wave_executed"] > 0,
+          f"Apply window waves {app.counters}")
+
+    reg = sb.windows["range_register"]
+    for i in range(0, len(reg), sb.window):
+        rr = sb.run("range_register", ops=reg[i:i + sb.window])
+        check(outcomes(rr) == [("preaccept", "SUCCESS")],
+              f"range registration outcomes {outcomes(rr)}")
+    rng_w = sb.run("range")
+    store_log(rng_w, f"; {len(sb.flat.store.range_commands)} range txns "
+              f"registered; range hits {rng_w.counters['device_range_hits']}"
+              f" misses {rng_w.counters['device_range_misses']}, candidates "
+              f"{rng_w.counters['device_range_candidates']}")
+    check(outcomes(rng_w) == [("preaccept", "SUCCESS")],
+          f"range window outcomes {outcomes(rng_w)}")
+    check(rng_w.counters["device_range_batches"] == 1
+          and rng_w.counters["device_range_hits"] > 0,
+          f"range window {rng_w.counters}")
+    check(only(rng_w, deps_tile=1), f"range window launches {rng_w.launches}")
+    for r in sb.runners():
+        check(not r.store.device_disabled and not r.node.agent.failures,
+              "a store failed or disabled its device tier")
 
     kernels = [
         {"name": "deps_tile", "route": "cuda",

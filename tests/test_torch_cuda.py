@@ -358,3 +358,42 @@ def test_recovery_scans_on_card_match_cpu(card):
         assert (bool(got[0][i].any()), bool(got[1][i].any())) == (ra, rb)
         assert enc.decode_ids(got[2][i]) == cw
         assert enc.decode_ids(got[3][i]) == anw
+
+
+@pytest.mark.parametrize("mesh", [False, True])
+def test_store_on_card_matches_cpu(card, mesh):
+    """A small seeded plan through the port's store on the card and on the
+    CPU, verify on: every op's result and every device_* counter after each
+    window equal, the final state equal; the card's store launched K1 (or
+    stacked K1) and K2."""
+    from accord_tpu_torch.impl.device_store import (DeviceCommandStore,
+                                                    MeshDeviceCommandStore)
+    from accord_tpu_torch.workload import (StoreNode, StorePlanRunner,
+                                           device_counters, store_plan,
+                                           store_state)
+
+    mix = (("preaccept", 0.40), ("accept", 0.05), ("commit", 0.20),
+           ("apply", 0.25), ("recover", 0.05), ("range", 0.05))
+    plan = store_plan(21, n_txns=300, window=(16, 64), mix=mix)
+    cls = MeshDeviceCommandStore if mesh else DeviceCommandStore
+    extra = {"n_shards": 8} if mesh else {}
+    runners = []
+    for device in (card, "cpu"):
+        node = StoreNode()
+        store = cls.factory(verify=True, device=device, **extra)(
+            0, node, node.kit.Ranges.of((0, 1 << 20)))
+        runners.append(StorePlanRunner(store, node, plan))
+    gpu, cpu = runners
+    before = {k.name: k.launches for k in cuda_kernels.KERNELS}
+    for w, ops in enumerate(plan[1]):
+        assert gpu.run_window(ops) == cpu.run_window(ops), f"window {w}"
+        assert device_counters(gpu.store) == device_counters(cpu.store), \
+            f"window {w}"
+    assert store_state(gpu.store) == store_state(cpu.store)
+    launched = {k.name: k.launches - before[k.name]
+                for k in cuda_kernels.KERNELS}
+    # one K1 launch a deps batch; device_batches also counts the recovery
+    # batches, which run plain torch
+    assert 0 < launched["deps_tile"] <= gpu.store.device_batches
+    assert launched["wavefront"] == gpu.store.device_wave_batches > 0
+    assert not gpu.store.device_disabled

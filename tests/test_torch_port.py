@@ -203,9 +203,11 @@ def test_port_imports_neither_jax_nor_accord_tpu():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'accord_tpu'))\n"
         "need = {'accord_tpu_torch.bench', 'accord_tpu_torch.ops.range_kernel',"
-        " 'accord_tpu_torch.ops.recovery_kernel'}\n"
+        " 'accord_tpu_torch.ops.recovery_kernel',"
+        " 'accord_tpu_torch.impl.device_store',"
+        " 'accord_tpu_torch.local.commands', 'accord_tpu_torch.local.store'}\n"
         "print(len(names), bad, sorted(need - set(names)))\n"
-        "sys.exit(1 if bad or need - set(names) or len(names) < 23 else 0)\n")
+        "sys.exit(1 if bad or need - set(names) or len(names) < 46 else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr

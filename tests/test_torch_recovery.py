@@ -72,11 +72,13 @@ def test_recovery_scans_match_jax(seed):
         for k in keys:
             pc = next(c for c in cfks if c.key == k)
             jc = jax_by_key[k.token]
-            assert _ids(pc.started_after_without_witnessing_ids(probe)) == \
-                _ids(jc.started_after_without_witnessing_ids(jprobe, raw=True))
-            assert _ids(pc.executes_after_without_witnessing_ids(probe)) == \
-                _ids(jc.executes_after_without_witnessing_ids(jprobe,
-                                                               raw=True))
+            for raw in (True, False):
+                assert _ids(pc.started_after_without_witnessing_ids(
+                    probe, raw=raw)) == _ids(
+                    jc.started_after_without_witnessing_ids(jprobe, raw=raw))
+                assert _ids(pc.executes_after_without_witnessing_ids(
+                    probe, raw=raw)) == _ids(
+                    jc.executes_after_without_witnessing_ids(jprobe, raw=raw))
             assert _ids(pc.stable_started_before_and_witnessed(probe)) == \
                 _ids(jc.stable_started_before_and_witnessed(jprobe))
             assert _ids(pc.accepted_started_before_without_witnessing(
