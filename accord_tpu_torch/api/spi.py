@@ -1,10 +1,4 @@
-"""Host integration interfaces (reference: accord/api/*.java — SURVEY.md §2.1).
-
-A copy of ``accord_tpu/api/spi.py`` without the two parts that stand on the
-messaging and bootstrap layers, which are not ported yet: ``CallbackSink``
-(the msg-id bookkeeping and coalescing windows of the concrete network
-sinks) and ``DataStore.fetch`` (the ranged FetchCoordinator).
-"""
+"""Host integration interfaces (reference: accord/api/*.java — SURVEY.md §2.1)."""
 
 from __future__ import annotations
 
@@ -75,6 +69,89 @@ class MessageSink(abc.ABC):
     @abc.abstractmethod
     def reply(self, to: int, reply_context, reply) -> None:
         ...
+
+
+class CallbackSink(MessageSink):
+    """msg-id/callback bookkeeping shared by concrete sinks (sim NodeSink,
+    host MaelstromSink). Entries are released BOTH on reply delivery and on
+    RPC timeout — registration installs an unregister hook the node's safe
+    callback fires when its timer expires, so a long-lived host under
+    partitions does not pin dead coordination state forever.
+
+    Also carries the ingest pipeline's coalescing-window machinery
+    (accord_tpu_torch/pipeline/): between `batch_begin()` and `batch_flush()`,
+    concrete sinks route every outbound request through `_capture` instead
+    of the transport; the flush then emits ONE MultiPreAccept envelope per
+    destination (single-request groups go out unwrapped via the sink's
+    `_send_prepared`).  Windows nest (a batch dispatch inside a host loop
+    tick): only the outermost flush actually sends."""
+
+    def __init__(self):
+        self._seq = 0
+        self._callbacks: dict = {}
+        self._batch: dict = None      # dest -> [(reply_context, request)]
+        self._batch_depth = 0
+
+    def _register(self, callback) -> int:
+        self._seq += 1
+        msg_id = self._seq
+        self._callbacks[msg_id] = callback
+        try:
+            callback.sink_unregister = (
+                lambda: self._callbacks.pop(msg_id, None))
+        except AttributeError:
+            pass  # slotted callbacks just stay until delivery
+        return msg_id
+
+    def deliver_reply(self, msg_id: int, from_id: int, reply) -> None:
+        callback = self._callbacks.pop(msg_id, None)
+        if callback is not None:
+            callback.deliver(reply)
+
+    # ------------------------------------------------- coalescing windows --
+    def batch_begin(self) -> None:
+        """Open (or deepen) a coalescing window: outbound requests are
+        captured per destination until the matching batch_flush."""
+        if self._batch_depth == 0:
+            self._batch = {}
+        self._batch_depth += 1
+
+    def batch_flush(self) -> None:
+        """Close one window level; on closing the outermost level, emit one
+        envelope per destination (unwrapped when a group holds a single
+        request — no reason to pay envelope framing for a lone message)."""
+        if self._batch_depth == 0:
+            return
+        self._batch_depth -= 1
+        if self._batch_depth > 0:
+            return
+        groups, self._batch = self._batch, None
+        if not groups:
+            return
+        from accord_tpu_torch.messages.multi import MultiPreAccept
+        for to, parts in groups.items():
+            if len(parts) == 1:
+                self._send_prepared(to, parts[0][0], parts[0][1])
+            else:
+                self.send(to, MultiPreAccept(parts))
+
+    def _capture(self, to: int, reply_context, request) -> bool:
+        """Concrete sinks call this first in send/send_with_callback; True
+        means the request was captured into the open window (the callback,
+        if any, is already registered — `reply_context` is its transport
+        token) and must not be sent now."""
+        if self._batch is None:
+            return False
+        self._batch.setdefault(to, []).append((reply_context, request))
+        return True
+
+    def _send_prepared(self, to: int, reply_context, request) -> None:
+        """Transport-specific raw send of a request whose callback (when
+        present) is ALREADY registered under `reply_context`.  Concrete
+        sinks override; the fallback wraps in a single-part envelope, which
+        is always correct."""
+        from accord_tpu_torch.messages.multi import MultiPreAccept
+        self.send(to, MultiPreAccept([(reply_context, request)]))
 
 
 class EpochReady:
@@ -156,6 +233,16 @@ class DataStore(abc.ABC):
         @abc.abstractmethod
         def fail(self, ranges: "Ranges", failure: BaseException) -> None:
             ...
+
+    def fetch(self, node, safe_store, ranges: "Ranges", sync_point,
+              fetch_ranges: "DataStore.FetchRanges") -> "DataStore.FetchResult":
+        """Copy `ranges` from peers up to `sync_point` (the bootstrap fence).
+        Default: the generic ranged FetchCoordinator over the FetchSnapshot
+        wire protocol with per-shard source failover — stores with bespoke
+        movement (file streaming, object storage) override."""
+        from accord_tpu_torch.impl.fetch_coordinator import FetchCoordinator
+        return FetchCoordinator(node, ranges, sync_point, fetch_ranges,
+                                self).start().result
 
     # -- snapshot transfer primitives (bootstrap; DataStore.java fetch
     #    implementations move data in host-defined snapshot units) --

@@ -1,3 +1,7 @@
-"""Local replica state: the per-key conflict index (cfk), commands and their
-statuses, the command store and the local state machine's transitions
-(commands), copies of their ``accord_tpu.local`` counterparts."""
+"""Local replica state machine (reference: accord/local — SURVEY.md §2.3)."""
+
+from accord_tpu_torch.local.status import (
+    SaveStatus, Phase, Durability, Known, KnownRoute, KnownDefinition,
+    KnownExecuteAt, KnownDeps, KnownOutcome,
+)
+from accord_tpu_torch.local.command import Command, WaitingOn

@@ -14,7 +14,6 @@ in accord_tpu_torch.ops.wavefront with this scalar path as its oracle.
 from __future__ import annotations
 
 import enum
-import os
 from collections import deque
 from typing import Callable, List, Optional, Tuple
 
@@ -128,15 +127,6 @@ def is_shard_fenced(safe_store: SafeCommandStore, txn_id: TxnId,
     return any(rb.is_shard_redundant(txn_id, k) for k in participants)
 
 
-def full_infer_enabled() -> bool:
-    """ACCORD_INFER_FULL: default-on full Infer ladder (quorum no-round
-    invalidation + fence refusal + safe-to-clean); =0 restores the r5
-    narrowing that routed all evidence through the Invalidate round.  A copy
-    of ``accord_tpu/coordinate/infer.py::full_infer_enabled``, beside its
-    one caller until the coordination layer is ported."""
-    return os.environ.get("ACCORD_INFER_FULL", "1") != "0"
-
-
 def is_durably_fenced(safe_store: SafeCommandStore, txn_id: TxnId,
                       participants) -> bool:
     """The full Infer ladder's refusal rule (coordinate/infer.py): a replica
@@ -150,6 +140,7 @@ def is_durably_fenced(safe_store: SafeCommandStore, txn_id: TxnId,
     (a fence cannot advance past a genuinely in-flight accept, whose
     application the durability round awaits).  Off under
     ACCORD_INFER_FULL=0, restoring the r5 executeAt-above-fence behavior."""
+    from accord_tpu_torch.coordinate.infer import full_infer_enabled
     if not full_infer_enabled():
         return False
     db = safe_store.store.durable_before

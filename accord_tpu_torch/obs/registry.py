@@ -77,7 +77,7 @@ class Histogram:
     op per observation; quantiles are bucket-upper-bound approximations,
     which is all a latency breakdown needs.
 
-    ERROR BOUND (pinned for the JAX package's copy by tests/test_obs.py): for any distribution and
+    ERROR BOUND (pinned by tests/test_obs.py): for any distribution and
     any q, the reported quantile r and the exact same-rank sample value v
     satisfy v <= r < 2*v (for v >= 1) — r is the upper bound of v's
     bucket.  Monitoring tolerates a [1x, 2x) one-sided bound; a tail-

@@ -5,7 +5,7 @@ TxnId.java:32,124-157, Ballot.java:23, Txn.java:53-265 (kind conflict matrix
 :220-260).
 
 Bit layout follows the reference's 128-bit packing so timestamps round-trip
-losslessly to a pair of int64 device lanes:
+losslessly to a pair of int64 device lanes (accord_tpu_torch.ops.timestamps):
     msb = epoch(48b) | hlc_high(16b)
     lsb = hlc_low(48b) | flags(16b)      flags: REJECTED=0x8000, domain(1b), kind(3b)
 plus a 32-bit node id used as the final comparison tie-breaker.

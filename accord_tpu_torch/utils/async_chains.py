@@ -1,11 +1,10 @@
 """Callback-based async primitives (reference: accord/utils/async/AsyncChain.java:29,
 AsyncChains.java, AsyncResult).
 
-Deliberately NOT asyncio: a deterministic simulator (the JAX package's
-accord_tpu.sim) must own every scheduling decision, so these are plain
-callback chains with no event loop of their own. Callbacks fire
-synchronously on settle (on the settler's thread / simulated executor),
-matching the reference's semantics.
+Deliberately NOT asyncio: the deterministic simulator (accord_tpu_torch.sim) must own
+every scheduling decision, so these are plain callback chains with no event loop
+of their own. Callbacks fire synchronously on settle (on the settler's thread /
+simulated executor), matching the reference's semantics.
 """
 
 from __future__ import annotations

@@ -20,7 +20,9 @@ the local state machine's transitions, for the equivalence tests) and
 ``default_store_plan`` (the ``default`` cell's shape as a history of flush
 windows).  ``StorePlanRunner`` runs a plan through ``store.execute(context,
 fn)`` on a ``StoreNode``, the tests' FakeNode counterpart, and returns
-every result as plain tuples.
+every result as plain tuples.  ``PROTOCOL_BURNS`` are the burns the
+protocol cells run, and ``burn_fingerprint`` reduces a finished burn of
+either package to plain data, for the same-seed differentials.
 """
 
 from __future__ import annotations
@@ -719,6 +721,67 @@ def store_state(store) -> dict:
         "cfks": tuple((k.token, cfk_arrays(c)) for k, c in
                       sorted(store.cfks.items(), key=lambda kv: kv[0].token)),
         "data": tuple(sorted(store.data_store.snapshot().items())),
+    }
+
+
+# The protocol cells: the reference's flagship device burn (the closing
+# flagship of SOAK_NOTES.md:217-224) and the soak's mesh arm
+# (mesh-loss12-part-drift, soak.py:43-44), as arguments of ``sim.burn``'s
+# CLI, each with the summary line the JAX package's burn prints for them (on
+# the CPU; the simulation runs on virtual time, so any backend prints it)
+PROTOCOL_BURNS = {
+    "flagship": (
+        "-s 1 -o 1000 --device-store --device-verify --drop 0.1 "
+        "--partitions --drift --stores 4",
+        "seed=1 ops=1000 acks=368 nacks=632 shed=0 lost=0 pending=0 "
+        "lat_p50=3019.3ms lat_p95=18722.4ms virtual_time=1804.2s "
+        "events=323301 OK device[hits=6273 misses=7 batches=14742 "
+        "probes=14829 max_batch=2 cross_txn_windows=3557 recovery_hits=5764 "
+        "recovery_misses=636 wave_batches=6 wave_planned=12 wave_executed=10 "
+        "wave_depth=2 range_hits=6262 range_misses=12] infer[evidence=75 "
+        "quorum_evidence=23 inferred_rounds=0 no_round=0 fence_refusals=0 "
+        "safe_to_clean=0] audit[rounds=45 agree=31]"),
+    "mesh": (
+        "-s 54400 -o 100 --device-verify --mesh-store --drop 0.12 "
+        "--partitions --drift --stores 4",
+        "seed=54400 ops=100 acks=20 nacks=80 shed=0 lost=0 pending=0 "
+        "lat_p50=1072.8ms lat_p95=10995.1ms virtual_time=850.8s "
+        "events=124384 OK device[hits=3515 misses=1 batches=2980 probes=2995 "
+        "max_batch=2 cross_txn_windows=583 recovery_hits=3640 "
+        "recovery_misses=78 wave_batches=1 wave_planned=2 wave_executed=2 "
+        "wave_depth=1 range_hits=3385 range_misses=12] infer[evidence=37 "
+        "quorum_evidence=11 inferred_rounds=0 no_round=0 fence_refusals=0 "
+        "safe_to_clean=1] audit[rounds=15 agree=8]"),
+}
+
+
+def burn_fingerprint(run) -> dict:
+    """A finished ``sim.burn.BurnRun`` of either package as plain data: its
+    stats, every ack latency, the events and virtual time, the end-of-run
+    audit's outcomes and the final histories, and per node the Infer
+    tallies, the agent's recorded failures and the ``device_*`` counters of
+    its stores summed (none for stores without a device tier)."""
+    st = run.stats
+    nodes = {}
+    for nid, node in sorted(run.cluster.nodes.items()):
+        summed: Dict[str, int] = {}
+        for store in node.command_stores.all():
+            if hasattr(store, "device_hits"):
+                summed["device_disabled"] = (summed.get("device_disabled", 0)
+                                             + int(store.device_disabled))
+                for name, v in device_counters(store).items():
+                    summed[name] = summed.get(name, 0) + v
+        nodes[nid] = {"device": summed, "infer": dict(node.infer_stats),
+                      "failures": len(run.cluster.agents[nid].failures)}
+    return {
+        "stats": (st.acks, st.nacks, st.shed, st.lost, st.pending,
+                  st.restarts),
+        "ack_latencies_us": list(st.ack_latencies_us),
+        "events": run.cluster.queue.processed,
+        "now_us": run.cluster.queue.clock.now_us,
+        "audit": [r["outcome"] for r in run.audit_rounds],
+        "final": run._final_histories(),
+        "nodes": nodes,
     }
 
 

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Proof on one H100 that the port builds and resolves a full flush window,
 the full TPC-C new-order replay, a recovery window and the rangestress lane
-through its hand-written CUDA kernels, and serves the protocol store's
-flush windows through them.
+through its hand-written CUDA kernels, serves the protocol store's flush
+windows through them, and runs the reference's flagship burn through them.
 
     python3 chip_smoke.py          (from the repository root, on a CUDA card)
 
@@ -123,13 +123,31 @@ Phases; any failure raises, exits non-zero and prints no result lines:
     hits, misses and their causes; and K1 on the PreAccept window's probes
     and the copies of its mask and of phase 4's [512, 128,768] mask to the
     host, timed alone.
+14. the protocol on the card: the protocol cells' burns
+    (workload.PROTOCOL_BURNS) through the port's burn CLI,
+    accord_tpu_torch.sim.burn.main, with the stores on the card, the
+    profiler sampling every flush window (ACCORD_PROFILE=1) and the launch
+    counts zeroed just before each burn and read just after.  The flagship
+    (-s 1 -o 1000 --device-store --device-verify --drop 0.1 --partitions
+    --drift --stores 4) and the mesh arm (-s 54400 -o 100 --mesh-store,
+    drop 0.12): each summary line == the JAX package's, byte for byte;
+    every store still on its device tier and no agent failure; K1's
+    launches == the deps flushes that reached it (the flat store's
+    deps_kernel laps, the mesh store's sharded_kernel laps), which with the
+    recovery flushes (recovery_kernel laps) make device_batches; K2's
+    launches == wave_batches (6 and 1); K4 and K5 not launched.  It prints
+    each burn's wall seconds, acked ops per wall second, the launches, and
+    every store's encode, kernel and decode laps summed, beside the wall.
 The tolerance everywhere is exact equality: every output is integer or bool.
 
 Then, on lines of their own: the card's name and power limit (nvidia-smi),
 the kernels JSON object, and last {"ok": true, "device": {...}}.
 """
 
+import contextlib
+import io
 import json
+import os
 import statistics
 import sys
 import time
@@ -196,7 +214,10 @@ def main() -> int:
     from accord_tpu_torch.utils.backend import card_name_and_power_limit
     from accord_tpu_torch.utils.random_source import RandomSource
     from accord_tpu_torch.utils.timing import median_ms
-    from accord_tpu_torch.workload import (build_world, device_counters,
+    from accord_tpu_torch.obs.registry import parse_labels
+    from accord_tpu_torch.sim import burn
+    from accord_tpu_torch.workload import (PROTOCOL_BURNS, build_world,
+                                           device_counters,
                                            first_touch_preaccepts,
                                            keyset_cases, random_world,
                                            range_cases, range_index_cases,
@@ -1061,6 +1082,99 @@ def main() -> int:
     for r in sb.runners():
         check(not r.store.device_disabled and not r.node.agent.failures,
               "a store failed or disabled its device tier")
+
+    # ---- 14. the protocol on the card: the protocol cells' burns through
+    # the port's burn CLI, the profiler sampling every flush window
+    def burn_on_card(name):
+        argv, want = PROTOCOL_BURNS[name]
+        runs = []
+
+        class Recorded(burn.BurnRun):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                runs.append(self)
+
+        out = io.StringIO()
+        saved = burn.BurnRun, os.environ.get("ACCORD_PROFILE")
+        burn.BurnRun, os.environ["ACCORD_PROFILE"] = Recorded, "1"
+        try:
+            ck.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = burn.main(argv.split())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = {k.name: k.launches for k in ck.KERNELS}
+        finally:
+            burn.BurnRun = saved[0]
+            if saved[1] is None:
+                del os.environ["ACCORD_PROFILE"]
+            else:
+                os.environ["ACCORD_PROFILE"] = saved[1]
+        line = out.getvalue().strip().splitlines()[-1]
+        log(f"[protocol] {name}: {line}")
+        check(rc == 0 and len(runs) == 1, f"{name} burn exited {rc}")
+        check(line == want, f"{name} burn line != the JAX package's: {want}")
+        run = runs[0]
+        stores = [s for n in run.cluster.nodes.values()
+                  for s in n.command_stores.all()]
+        check(not any(s.device_disabled for s in stores)
+              and not any(a.failures for a in run.cluster.agents.values()),
+              f"{name}: a store left its device tier or an agent failed")
+        # every store's profiler laps, summed over the nodes' registries:
+        # (count, ms) a kernel lap and ms a waterfall stage
+        laps, stages = {}, {}
+        for n in run.cluster.nodes.values():
+            hists = n.obs.registry.snapshot()["histograms"]
+            for lk, h in hists.get("accord_profile_kernel_us", {}).items():
+                c, ms = laps.get(parse_labels(lk)["kernel"], (0, 0.0))
+                laps[parse_labels(lk)["kernel"]] = (c + h["count"],
+                                                    ms + h["sum"] / 1e3)
+            for lk, h in hists.get("accord_profile_window_us", {}).items():
+                st = parse_labels(lk)["stage"]
+                stages[st] = stages.get(st, 0.0) + h["sum"] / 1e3
+        summed = {c: sum(getattr(s, c) for s in stores)
+                  for c in ("device_batches", "device_wave_batches")}
+        log(f"[protocol] {card}: {name} burn {wall:.1f} s wall, "
+            f"{run.stats.acks} acks, {run.stats.acks / wall:.3f} acked ops "
+            f"per wall second, {len(stores)} stores; launches "
+            f"{ {k: v for k, v in launched.items() if v} }; laps (count, ms) "
+            + ", ".join(f"{k} ({c}, {ms:.1f})"
+                        for k, (c, ms) in sorted(laps.items()))
+            + "; stages " + ", ".join(f"{k} {ms:.1f} ms"
+                                      for k, ms in sorted(stages.items()))
+            + f"; encode + device + decode "
+            f"{sum(stages.get(k, 0.0) for k in ('encode', 'device', 'decode')) / 1e3:.3f} s "
+            f"of {wall:.1f} s")
+        return launched, laps, summed
+
+    # the flagship: a deps flush reaches K1 once (its deps_kernel lap), a
+    # recovery flush runs the plain recovery scans (its recovery_kernel
+    # lap), and device_batches counts both
+    launched, laps, summed = burn_on_card("flagship")
+    k1_flushes = laps.get("deps_kernel", (0, 0))[0]
+    check(launched["deps_tile"] == k1_flushes > 0
+          and k1_flushes + laps.get("recovery_kernel", (0, 0))[0]
+          == summed["device_batches"],
+          f"flagship K1 launches {launched['deps_tile']}, deps_kernel laps "
+          f"{k1_flushes}, laps {laps}, {summed}")
+    check(launched["wavefront"] == summed["device_wave_batches"] == 6,
+          f"flagship K2 launches {launched['wavefront']}, {summed}")
+    check(not launched["keyset_windows"] and not launched["range_stab"],
+          f"flagship launches {launched}")
+    # the mesh arm: each deps flush is one stacked K1 launch (its
+    # sharded_kernel lap) and never the flat one
+    launched, laps, summed = burn_on_card("mesh")
+    k1_flushes = laps.get("sharded_kernel", (0, 0))[0]
+    check(launched["deps_tile"] == k1_flushes > 0
+          and "deps_kernel" not in laps
+          and k1_flushes + laps.get("recovery_kernel", (0, 0))[0]
+          == summed["device_batches"],
+          f"mesh K1 launches {launched['deps_tile']}, laps {laps}, {summed}")
+    check(launched["wavefront"] == summed["device_wave_batches"] == 1,
+          f"mesh K2 launches {launched['wavefront']}, {summed}")
+    check(not launched["keyset_windows"] and not launched["range_stab"],
+          f"mesh launches {launched}")
 
     kernels = [
         {"name": "deps_tile", "route": "cuda",

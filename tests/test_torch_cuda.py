@@ -397,3 +397,34 @@ def test_store_on_card_matches_cpu(card, mesh):
     assert 0 < launched["deps_tile"] <= gpu.store.device_batches
     assert launched["wavefront"] == gpu.store.device_wave_batches > 0
     assert not gpu.store.device_disabled
+
+
+def test_mesh_arm_burn_on_card_matches_cpu(card):
+    """The soak's mesh arm (workload.PROTOCOL_BURNS["mesh"]) through the
+    port's engine with the mesh store on the card and on the CPU, verify
+    on: the two runs' stats, ack latencies, audits, final histories and
+    per-node device counters are equal, and the card's run launched
+    stacked K1 and K2."""
+    from accord_tpu_torch.impl.device_store import MeshDeviceCommandStore
+    from accord_tpu_torch.sim.burn import BurnRun
+    from accord_tpu_torch.workload import burn_fingerprint
+
+    prints = []
+    for device in (card, "cpu"):
+        before = {k.name: k.launches for k in cuda_kernels.KERNELS}
+        run = BurnRun(54400, 100, drop_prob=0.12, partitions=True,
+                      clock_drift=True, num_command_stores=4,
+                      store_factory=MeshDeviceCommandStore.factory(
+                          flush_window_us=300, verify=True, device=device))
+        run.run()
+        prints.append(burn_fingerprint(run))
+        launched = {k.name: k.launches - before[k.name]
+                    for k in cuda_kernels.KERNELS}
+        if device is card:
+            on_card = launched
+        else:
+            assert not any(launched.values()), launched
+    assert prints[0] == prints[1]
+    assert on_card["deps_tile"] > 0 and on_card["wavefront"] > 0, on_card
+    assert not any(n["device"]["device_disabled"] or n["failures"]
+                   for n in prints[0]["nodes"].values())

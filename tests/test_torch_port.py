@@ -205,9 +205,11 @@ def test_port_imports_neither_jax_nor_accord_tpu():
         "need = {'accord_tpu_torch.bench', 'accord_tpu_torch.ops.range_kernel',"
         " 'accord_tpu_torch.ops.recovery_kernel',"
         " 'accord_tpu_torch.impl.device_store',"
-        " 'accord_tpu_torch.local.commands', 'accord_tpu_torch.local.store'}\n"
+        " 'accord_tpu_torch.local.commands', 'accord_tpu_torch.local.store',"
+        " 'accord_tpu_torch.sim.burn', 'accord_tpu_torch.local.node',"
+        " 'accord_tpu_torch.coordinate.transaction'}\n"
         "print(len(names), bad, sorted(need - set(names)))\n"
-        "sys.exit(1 if bad or need - set(names) or len(names) < 46 else 0)\n")
+        "sys.exit(1 if bad or need - set(names) or len(names) < 124 else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
