@@ -1,8 +1,9 @@
-"""Bench lanes of the port: ``default``, ``rangestress`` and ``tpcc``.
+"""Bench lanes of the port: ``default``, ``rangestress``, ``tpcc`` and ``tcp``.
 
     python -m accord_tpu_torch.bench --config default        (on the card)
     python -m accord_tpu_torch.bench --config rangestress
     python -m accord_tpu_torch.bench --config tpcc
+    python -m accord_tpu_torch.bench --config tcp
     python -m accord_tpu_torch.bench --config rangestress --device cpu
 
 Each lane prints one JSON line under the metric name the JAX package's
@@ -23,6 +24,20 @@ hardware it ran on: on the card, its name and power limit from
   must be 15,193,250.  On the CPU the counts come from the chunked plain
   version, which bounds the [Q, N] tile.
 * ``tpcc``: ``tpcc.replay``.
+* ``tcp`` (``bench.py::bench_tcp`` with ``ACCORD_TCP_DEVICE_STORE=1``, the
+  JAX package's ``tcp+device`` lane): three node processes on real sockets
+  (``host.tcp.TcpClusterClient``), each node's command stores
+  ``DeviceCommandStore``s on the device (flush window
+  ``ACCORD_TCP_FLUSH_US``, default 1000 µs); 400 ops over 100 keys from a
+  client 16 deep, seed 7 (``ACCORD_BENCH_TCP_OPS`` and
+  ``ACCORD_BENCH_TCP_KEYS`` resize it), the same op mix, final chunked
+  reads and ``full_verifier(witness_replay=False)``; at least 90% of the
+  ops must be acked.  It reports the acked txns a wall second and the
+  client's ack latencies (on the card only), the nodes' merged metrics
+  summary (``obs.report.merge_node_snapshots``) and, for each node, the
+  tier each native extension runs in (its ready line), its device counters
+  and, with ``ACCORD_PROFILE=1``, its profiler's lap counts and their
+  summed ms.
 
 ``StoreBench`` drives the ``default`` cell's shape through the protocol
 store; ``chip_smoke.py`` (phase 13) runs it on the card.
@@ -41,6 +56,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import random
 import time
 from typing import NamedTuple, Optional
 
@@ -51,7 +68,7 @@ from accord_tpu_torch import tpcc
 from accord_tpu_torch.impl.device_store import (DeviceCommandStore,
                                                 MeshDeviceCommandStore)
 from accord_tpu_torch.obs.profiler import Profiler
-from accord_tpu_torch.obs.registry import Registry
+from accord_tpu_torch.obs.registry import Registry, parse_labels
 from accord_tpu_torch.ops import cuda_kernels
 from accord_tpu_torch.ops.cuda_kernels import (batched_active_deps_cuda,
                                                execution_waves_cuda,
@@ -319,8 +336,189 @@ class StoreBench:
                            laps, wall_ms)
 
 
+# each node's device counters in the tcp lane's line, from its metrics
+# snapshot: {key in the line: registry counter}
+TCP_DEVICE_COUNTERS = {
+    "device_batches": "accord_device_kernel_batches_total",
+    "device_hits": "accord_device_hits_total",
+    "device_misses": "accord_device_misses_total",
+    "device_flush_windows": "accord_device_flush_windows_total",
+    "device_wave_batches": "accord_device_wave_batches_total",
+}
+
+
+def summed_profile_laps(registries) -> dict:
+    """The kernel profiler's laps (``ACCORD_PROFILE``), summed over metrics
+    snapshots (``Registry.snapshot()``): {kernel: (count, ms)}.  With every
+    window sampled, a deps flush is one ``deps_kernel`` lap (one K1 launch)
+    and a wave plan one ``wavefront_kernel`` lap (one K2 launch)."""
+    laps = {}
+    for snap in registries:
+        hists = snap["histograms"].get("accord_profile_kernel_us", {})
+        for labels, h in hists.items():
+            kernel = parse_labels(labels)["kernel"]
+            count, ms = laps.get(kernel, (0, 0.0))
+            laps[kernel] = (count + h["count"], ms + h["sum"] / 1e3)
+    return laps
+
+
+def tcp_lane(device=None, nodes=3, keys=100, n_ops=400, seed=7,
+             pipeline=16) -> dict:
+    """The JAX package's ``tcp+device`` lane (``bench.py::bench_tcp`` with
+    ``ACCORD_TCP_DEVICE_STORE=1``): `nodes` node processes on real sockets,
+    every command store a DeviceCommandStore on `device` (None: the card),
+    driven by one client `pipeline` deep with the reference's op mix ->
+    its JSON object.  Raises unless the history verifies strictly
+    serializable and more than 90% of the ops were acked."""
+    from accord_tpu_torch.host.tcp import TcpClusterClient
+    from accord_tpu_torch.obs.report import merge_node_snapshots
+    from accord_tpu_torch.sim.verify import Observation
+    from accord_tpu_torch.sim.verify_replay import full_verifier
+
+    n_ops = int(os.environ.get("ACCORD_BENCH_TCP_OPS", n_ops))
+    keys = int(os.environ.get("ACCORD_BENCH_TCP_KEYS", keys))
+    on_card = device is None or torch.device(device).type == "cuda"
+    if on_card and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu'")
+    # the node processes inherit these: device stores on `device`, and the
+    # reference lane's 1-in-2 protocol-CPU sampling
+    node_env = {"ACCORD_TCP_DEVICE_STORE": "1",
+                "ACCORD_TCP_DEVICE": None if device is None else str(device),
+                "ACCORD_CPU_PROFILE": os.environ.get("ACCORD_CPU_PROFILE",
+                                                     "2")}
+    saved = {k: os.environ.get(k) for k in node_env}
+    try:
+        for k, v in node_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        c = TcpClusterClient(n_nodes=nodes)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    rng = random.Random(seed)
+    obs, latencies_ms = [], []
+    try:
+        tiers = {r["id"]: r["native"] for r in c.ready}
+        state = {"value": 0, "submitted": 0}
+        pending = {}
+
+        def submit_one():
+            to = 1 + rng.randrange(nodes)
+            k = rng.randrange(keys)
+            reads, appends = [k], {}
+            if rng.random() < 0.7:
+                state["value"] += 1
+                appends[k] = state["value"]
+            if rng.random() < 0.3:
+                k2 = rng.randrange(keys)
+                if k2 not in appends:
+                    state["value"] += 1
+                    appends[k2] = state["value"]
+            req = state["submitted"]
+            state["submitted"] += 1
+            pending[req] = (time.monotonic(), dict(appends), to)
+            c.submit(to, reads, appends, req)
+
+        t0 = time.perf_counter()
+        for _ in range(min(pipeline, n_ops)):
+            submit_one()
+        acked = completed = 0
+        deadline = time.monotonic() + 300
+        while completed < n_ops and time.monotonic() < deadline:
+            frame = c.recv(5.0)
+            if frame is None:
+                continue
+            body = frame.get("body", {})
+            if body.get("type") != "submit_reply":
+                continue
+            completed += 1
+            start, appends, to = pending.pop(body["req"])
+            if body["ok"]:
+                acked += 1
+                end = time.monotonic()
+                latencies_ms.append((end - start) * 1e3)
+                obs.append(Observation(
+                    f"txn{body['req']}@n{to}",
+                    {int(t): tuple(v) for t, v in body["reads"].items()},
+                    appends, int(start * 1e6), int(end * 1e6)))
+            if state["submitted"] < n_ops:
+                submit_one()
+        dt = time.perf_counter() - t0
+
+        # final histories (not timed): chunked read-only txns, retried
+        # (they are idempotent) if a round timed out
+        final = {}
+        req = 10 ** 9
+        for lo in range(0, keys, 20):
+            chunk = list(range(lo, min(lo + 20, keys)))
+            for attempt in range(4):
+                c.submit(1, chunk, {}, req)
+                while True:
+                    frame = c.recv(30.0)
+                    if frame is None:
+                        raise AssertionError("final read timed out")
+                    body = frame.get("body", {})
+                    if body.get("type") == "submit_reply" \
+                            and body.get("req") == req:
+                        break
+                req += 1
+                if body["ok"]:
+                    for t, v in body["reads"].items():
+                        final[int(t)] = tuple(v)
+                    break
+                if attempt == 3:
+                    raise AssertionError(f"final read failed: {body}")
+        verifier = full_verifier(witness_replay=False)
+        for o in obs:
+            verifier.observe(o)
+        verifier.verify(final)  # raises on any anomaly
+        snaps = [c.fetch_metrics(i) for i in range(1, nodes + 1)]
+    finally:
+        c.close()
+    if acked <= 0.9 * n_ops:
+        raise AssertionError(f"acked {acked} of {completed} ({n_ops} ops)")
+    if any(s is None for s in snaps):
+        raise AssertionError("a node returned no metrics snapshot")
+    merged = merge_node_snapshots(snaps)
+    per_node = []
+    for i, snap in enumerate(snaps, start=1):
+        counters = snap["metrics"]["counters"]
+        laps = summed_profile_laps([snap["metrics"]])
+        per_node.append({
+            "node": i, "native": tiers[i],
+            "device": {k: sum(counters.get(name, {}).values())
+                       for k, name in TCP_DEVICE_COUNTERS.items()},
+            "laps": {k: count for k, (count, _) in laps.items()},
+            "lap_ms": {k: ms for k, (_, ms) in laps.items()}})
+    result = {"metric": "tcp_host_txn_per_sec", "value": None,
+              "unit": "txn/s",
+              "workload": "lin-kv read+append mix, direct-socket cluster, "
+                          "device stores",
+              "nodes": nodes, "keys": keys, "ops": completed, "acked": acked,
+              "client_inflight": pipeline, "seed": seed,
+              "flush_window_us": int(os.environ.get("ACCORD_TCP_FLUSH_US",
+                                                    "1000")),
+              "wall_seconds": None, "ack_p50_ms": None, "ack_p99_ms": None,
+              "verified": "strict-serializable",
+              "obs": merged["summary"], "per_node": per_node}
+    if on_card:
+        result.update(device="cuda", hardware=card_name_and_power_limit(),
+                      value=acked / dt, wall_seconds=dt,
+                      ack_p50_ms=float(np.percentile(latencies_ms, 50)),
+                      ack_p99_ms=float(np.percentile(latencies_ms, 99)))
+    else:
+        result.update(device="cpu", hardware="cpu")
+    return result
+
+
 LANES = {"default": default_lane, "rangestress": rangestress_lane,
-         "tpcc": tpcc_lane}
+         "tpcc": tpcc_lane, "tcp": tcp_lane}
 
 
 def main(argv: Optional[list] = None) -> int:

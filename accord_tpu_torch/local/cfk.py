@@ -1,4 +1,4 @@
-"""CommandsForKey: the per-key conflict index a flush window is encoded from.
+"""CommandsForKey: the per-key conflict index — north-star kernel #1.
 
 Reference: accord/local/CommandsForKey.java:132 (design doc :74-131, TxnInfo
 :194-293, the missing[] divergence encoding :412-470, mapReduceActive deps
@@ -24,13 +24,9 @@ fast-path votes for it, CommandsForKey.java:82-88).
 A committed-by-executeAt view (_committed) drives execution-order queries and
 the transitive-dependency elision in map_reduce_active.
 
-Host-side scalar implementation; the batched device equivalent (one kernel
-call computing deps for a whole window of transactions) lives in
+Host-side scalar implementation; the batched device equivalent (one XLA call
+computing deps for a whole window of transactions) lives in
 accord_tpu_torch.ops.deps_kernel and must stay bit-identical to this path.
-
-A copy of the pure-Python tier of ``accord_tpu/local/cfk.py``.  The JAX
-package also binds a C++ core over the same arrays (pinned identical to this
-tier), which the port does not carry.
 """
 
 from __future__ import annotations
@@ -40,11 +36,19 @@ import heapq
 from bisect import bisect_left, bisect_right, insort
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
+from accord_tpu_torch import native
 from accord_tpu_torch.primitives.keys import Key
 from accord_tpu_torch.primitives.timestamp import (_KIND_MASK, _KIND_SHIFT,
-                                                   KindSet, Timestamp, TxnId,
-                                                   TxnKind)
+                                             _WITNESS_BITS, Timestamp, TxnId,
+                                             TxnKind, KindSet)
 from accord_tpu_torch.utils import invariants
+
+# the native CommandsForKey core (native/_cfk_core.cpp): one C pass for each
+# of the three hot loops over the SAME parallel arrays this class owns; None
+# means the bit-identical Python tier (no toolchain, ACCORD_NATIVE=0, or
+# ACCORD_NO_NATIVE=1).  tests/test_cfk_native.py cross-checks the tiers on
+# randomized op sequences; monkeypatching this global selects a tier.
+_NATIVE = native.get_cfk()
 
 # kinds visible in other txns' deps (TxnKind.is_globally_visible), as a bit
 # mask over kind ints — the per-entry visibility test in _block_point
@@ -203,6 +207,8 @@ class CommandsForKey:
     # ------------------------------------------------------------ plumbing --
     def _pos(self, txn_id: TxnId) -> int:
         """Index of txn_id, or -(insert_pos)-1 if absent."""
+        if _NATIVE is not None:
+            return _NATIVE.pos(self._ids, txn_id)
         i = bisect_left(self._ids, txn_id)
         if i < len(self._ids) and self._ids[i] == txn_id:
             return i
@@ -309,6 +315,11 @@ class CommandsForKey:
             self._add_missing_everywhere(txn_id)
 
     def _add_missing_everywhere(self, new_id: TxnId) -> None:
+        if _NATIVE is not None:
+            _NATIVE.add_missing_everywhere(self._ids, self._status, self._eat,
+                                           self._missing, new_id,
+                                           _WITNESS_BITS)
+            return
         for j in range(len(self._ids)):
             if self._ids[j] == new_id or not self._status[j].has_info:
                 continue
@@ -323,6 +334,9 @@ class CommandsForKey:
     def _remove_missing(self, txn_id: TxnId) -> None:
         """Elide a newly-committed id from every missing collection
         (removeMissing, :962-987)."""
+        if _NATIVE is not None:
+            _NATIVE.remove_missing(self._missing, txn_id)
+            return
         for j in range(len(self._missing)):
             m = self._missing[j]
             if not m:
@@ -338,6 +352,13 @@ class CommandsForKey:
         ids not yet witnessed here (the additions path, :738-860).  `pos` —
         txn_id's known index in the arrays (update just positioned it),
         adjusted here as additions land below it."""
+        if _NATIVE is not None:
+            _NATIVE.apply_deps(self._ids, self._status, self._eat,
+                               self._missing, self._wdeps, txn_id,
+                               int(status), dep_ids,
+                               InternalStatus.TRANSITIVELY_KNOWN,
+                               _WITNESS_BITS)
+            return
         dep_set = set(dep_ids)
         if pos is None:
             pos = self._pos(txn_id)
@@ -470,6 +491,12 @@ class CommandsForKey:
         missing[] divergence) and never become deps themselves.
         """
         bound = self.max_committed_write_before(before) if prune else None
+        if _NATIVE is not None:
+            for t in _NATIVE.map_reduce_active(self._ids, self._status,
+                                               self._eat, before,
+                                               kinds.mask(), bound):
+                fn(t)
+            return
         hi = bisect_left(self._ids, before)
         for i in range(hi):
             t = self._ids[i]

@@ -12,16 +12,17 @@ heuristics, scan-distance headers packed into the sorted array,
 CheckpointIntervalArrayBuilder.java:1133LoC); this keeps the same asymptotics
 and query semantics with a plain layout. The arrays (`starts`, `ends`,
 checkpoint CSR) are flat int lists on purpose: the device tier consumes the
-same layout for batched stabbing.
-
-A copy of the pure-Python tier of ``accord_tpu/utils/checkpoint_intervals.py``
-(the JAX package also binds a C++ mirror, which the port does not carry).
+same layout for batched stabbing (accord_tpu_torch.ops).
 """
 
 from __future__ import annotations
 
 import bisect
 from typing import Callable, List, Sequence, Tuple
+
+from accord_tpu_torch import native as _native_pkg
+
+_native_mod = _native_pkg.get()
 
 CHECKPOINT_EVERY = 8
 
@@ -32,7 +33,8 @@ class CheckpointIntervalIndex:
     the point; `find_overlaps(lo, hi)` every interval intersecting [lo, hi).
     """
 
-    __slots__ = ("starts", "ends", "_cp_offsets", "_cp_entries", "_every")
+    __slots__ = ("starts", "ends", "_cp_offsets", "_cp_entries", "_every",
+                 "_capsule")
 
     def __init__(self, starts: Sequence[int], ends: Sequence[int],
                  every: int = CHECKPOINT_EVERY):
@@ -45,7 +47,21 @@ class CheckpointIntervalIndex:
         self.starts = list(starts)
         self.ends = list(ends)
         self._every = every
-        self._build_py_checkpoints()
+        # native: one conversion at build time into an opaque capsule of
+        # int64 arrays; queries run against it with no per-query marshalling
+        self._capsule = None
+        if _native_mod is not None and hasattr(_native_mod, "cintia_build"):
+            try:
+                self._capsule = _native_mod.cintia_build(
+                    self.starts, self.ends, every)
+            except (OverflowError, TypeError):
+                # tokens wider than int64, or non-int comparables (any
+                # ordered numbers work on the Python tier): fall back
+                self._capsule = None
+        self._cp_offsets = None  # built lazily when the Python tier is used
+        self._cp_entries = None
+        if self._capsule is None:
+            self._build_py_checkpoints()
 
     def _build_py_checkpoints(self) -> None:
         # checkpoint c (at index c*every) lists every i < c*every with
@@ -73,6 +89,19 @@ class CheckpointIntervalIndex:
     def find(self, point: int, fn: Callable[[int], None]) -> None:
         """Visit the index of every interval with start <= point < end,
         in ascending index order."""
+        if self._capsule is not None:
+            try:
+                found = _native_mod.cintia_find(self._capsule, point)
+            except (OverflowError, TypeError):  # point outside int64 / non-int
+                found = None
+            if found is not None:
+                # callbacks run OUTSIDE the try: their own exceptions must
+                # propagate, not trigger a duplicate Python-tier pass
+                for i in found:
+                    fn(i)
+                return
+        if self._cp_offsets is None:
+            self._build_py_checkpoints()
         # j = count of intervals with start <= point
         j = bisect.bisect_right(self.starts, point)
         if j == 0:
@@ -90,6 +119,17 @@ class CheckpointIntervalIndex:
     def find_overlaps(self, lo: int, hi: int, fn: Callable[[int], None]) -> None:
         """Visit every interval intersecting [lo, hi): interval.start < hi and
         interval.end > lo. Ascending index order, each at most once."""
+        if self._capsule is not None:
+            try:
+                found = _native_mod.cintia_overlaps(self._capsule, lo, hi)
+            except (OverflowError, TypeError):
+                found = None
+            if found is not None:
+                for i in found:
+                    fn(i)
+                return
+        if self._cp_offsets is None:
+            self._build_py_checkpoints()
         j = bisect.bisect_left(self.starts, hi)  # intervals with start < hi
         if j == 0:
             return

@@ -2,11 +2,9 @@
 
 The reference's workhorse tier: merge/intersect/subtract over sorted unique
 arrays, and exponential+binary search with CEIL/FLOOR/FAST semantics. Host-side
-(Python) implementations here operate on lists/tuples of comparable values.
-
-A copy of the pure-Python tier of ``accord_tpu/utils/sorted_arrays.py``; the
-JAX package binds C++ mirrors over it (pinned identical to this tier), which
-the port does not carry.
+(Python) implementations here operate on lists/tuples of comparable values; the
+batched device equivalents live in accord_tpu_torch.ops.sorted_ops, and C++ mirrors in
+native/.
 """
 
 from __future__ import annotations
@@ -180,7 +178,8 @@ def next_intersection(a: Sequence, ai: int, b: Sequence, bi: int):
 
 def merge_sorted_unique(arrays: Sequence[Sequence[T]]) -> list:
     """N-way union (reference: RelationMultiMap.LinearMerger shape).
-    Alias of linear_merge_n, kept for its established callers."""
+    Alias of linear_merge_n, kept for its established callers — the
+    call-time lookup picks up the native binding when available."""
     return linear_merge_n([a for a in arrays if a])
 
 
@@ -192,3 +191,33 @@ def fold_intersection(a: Sequence, b: Sequence, fn: Callable, acc):
         acc = fn(acc, a[ai])
         pos = next_intersection(a, ai + 1, b, bi + 1)
     return acc
+
+
+# -- native tier --------------------------------------------------------------
+# The C++ mirrors (accord_tpu_torch/native/_sorted_arrays.cpp) replace the merge
+# loops and binary search when a toolchain built them; semantics are
+# identical including linear_union's identity-return convention
+# (tests/test_native.py cross-checks both tiers). find_ceil/find_floor keep
+# their Python bodies but ride the native binary_search.
+
+from accord_tpu_torch import native as _native  # noqa: E402
+
+# the Python bodies stay reachable under these aliases so the native tier
+# can be cross-checked against the REAL fallback (tests/test_native.py)
+py_linear_union = linear_union
+py_linear_intersection = linear_intersection
+py_linear_subtract = linear_subtract
+py_binary_search = binary_search
+py_linear_merge_n = linear_merge_n
+
+if _native.AVAILABLE:  # pragma: no branch
+    _m = _native.get()
+    linear_union = _m.linear_union
+    linear_intersection = _m.linear_intersection
+    linear_subtract = _m.linear_subtract
+    if hasattr(_m, "linear_merge_n"):  # older cached .so may predate it
+        linear_merge_n = _m.linear_merge_n
+
+    def binary_search(xs, target, lo=0, hi=None,  # noqa: F811
+                      mode: Search = Search.FAST) -> int:
+        return _m.binary_search(xs, target, lo, hi)

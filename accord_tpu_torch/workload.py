@@ -23,6 +23,7 @@ fn)`` on a ``StoreNode``, the tests' FakeNode counterpart, and returns
 every result as plain tuples.  ``PROTOCOL_BURNS`` are the burns the
 protocol cells run, and ``burn_fingerprint`` reduces a finished burn of
 either package to plain data, for the same-seed differentials.
+``tcp_cluster_txns`` drives a three-node real-socket cluster in this process.
 """
 
 from __future__ import annotations
@@ -783,6 +784,58 @@ def burn_fingerprint(run) -> dict:
         "final": run._final_histories(),
         "nodes": nodes,
     }
+
+
+def tcp_cluster_txns(n_txns: int = 20, tokens=(10, 11, 12)) -> dict:
+    """Three ``host.tcp.TcpHost`` nodes in this process on real localhost
+    sockets (``tests/test_tcp_host.py``'s in-process cluster; the
+    environment decides their stores, ``ACCORD_TCP_DEVICE_STORE=1`` the
+    device ones): `n_txns` single-key appends round-robin over the nodes
+    and `tokens`, each acked, then one read per token, all checked strictly
+    serializable by ``StrictSerializabilityVerifier`` (raises on a failed
+    txn or an anomaly).  -> {"seconds": wall seconds of the appends,
+    "stores": every node's command stores, "nodes": the nodes}."""
+    from accord_tpu_torch.host.tcp import TcpHost
+    from accord_tpu_torch.sim.verify import (Observation,
+                                             StrictSerializabilityVerifier)
+
+    ports = {1: ("127.0.0.1", 0), 2: ("127.0.0.1", 0), 3: ("127.0.0.1", 0)}
+    hosts = {}
+    try:
+        for i in (1, 2, 3):  # each binds its port; the next learns it
+            hosts[i] = TcpHost(i, ports)
+            ports = dict(hosts[i].peers)
+        for h in hosts.values():
+            h.peers.update(ports)
+        verifier = StrictSerializabilityVerifier()
+        t0 = time.perf_counter()
+        for i in range(n_txns):
+            h = hosts[1 + i % 3]
+            token = tokens[i % len(tokens)]
+            start = int(time.monotonic() * 1e6)
+            res = h.submit([token], {token: i + 1}).wait(30.0)
+            end = int(time.monotonic() * 1e6)
+            if res.failure is not None:
+                raise AssertionError(f"txn {i} failed: {res.failure!r}")
+            verifier.observe(Observation(
+                f"txn{i}@n{h.my_id}",
+                {k.token: tuple(v) for k, v in res.value.read_values.items()},
+                {token: i + 1}, start, end))
+        seconds = time.perf_counter() - t0
+        final = {}
+        for token in tokens:
+            res = hosts[2].submit([token], {}).wait(30.0)
+            if res.failure is not None:
+                raise AssertionError(f"read of {token} failed: "
+                                     f"{res.failure!r}")
+            final[token] = tuple(next(iter(res.value.read_values.values())))
+        verifier.verify(final)
+        return {"seconds": seconds, "nodes": [h.node for h in hosts.values()],
+                "stores": [s for h in hosts.values()
+                           for s in h.node.command_stores.all()]}
+    finally:
+        for h in hosts.values():
+            h.close()
 
 
 class _PlanTxn:

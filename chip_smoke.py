@@ -2,13 +2,18 @@
 """Proof on one H100 that the port builds and resolves a full flush window,
 the full TPC-C new-order replay, a recovery window and the rangestress lane
 through its hand-written CUDA kernels, serves the protocol store's flush
-windows through them, and runs the reference's flagship burn through them.
+windows through them, runs the reference's flagship burn through them, and
+serves a three-node real-socket cluster with its device stores on the card.
 
     python3 chip_smoke.py          (from the repository root, on a CUDA card)
 
 Phases; any failure raises, exits non-zero and prints no result lines:
- 1. build the four kernels from accord_tpu_torch/csrc/ (one nvcc per source,
-    all started together) and print the build seconds and ptxas' report;
+ 1. build the port's three native C++ extensions (accord_tpu_torch/native/:
+    the sorted arrays, the CommandsForKey core and the wire codec, g++ at
+    first use next to their sources) and fail with g++'s message if one is
+    missing or the interpreter's Python.h is absent; then the four kernels
+    from accord_tpu_torch/csrc/ (one nvcc per source, all started together);
+    print each build's seconds and ptxas' report;
  2. K1, the deps tile: kernel == plain torch on the card for three seeds of
     a small random world and for a world with K > 16384 (also cut to an E
     and a B that are not multiples of 4);
@@ -138,6 +143,30 @@ Phases; any failure raises, exits non-zero and prints no result lines:
     launches == wave_batches (6 and 1); K4 and K5 not launched.  It prints
     each burn's wall seconds, acked ops per wall second, the launches, and
     every store's encode, kernel and decode laps summed, beside the wall.
+    Phases 13 and 14 run on the native tier and print it beside their times.
+15. the real-socket host on the card (host.tcp, ACCORD_TCP_DEVICE_STORE=1),
+    with the profiler sampling every flush window (ACCORD_PROFILE=1):
+    (a) three TcpHost nodes in this process, every command store a
+    DeviceCommandStore on the card with verify on and a 500 us flush
+    window, the JAX package's 20 appends over 3 keys round-robin
+    (tests/test_tcp_host.py::test_tcp_cluster_with_device_stores), with
+    the launch counts zeroed just before and read just after: every txn
+    acked, the history strictly serializable, every store on its device
+    tier with device hits, no exception reported by a node's agent, the
+    native tier on; K1's launches == the deps flushes (deps_kernel laps)
+    > 0, K2's == wave_batches, K4 and K5 not launched; (b) the tcp+device
+    lane at its defaults (python -m accord_tpu_torch.bench --config tcp:
+    three node processes on real sockets, 100 keys, 400 ops, client depth
+    16, seed 7, 1000 us flush windows): verified strictly serializable, at
+    least 360 of 400 acked, no traceback or agent-reported exception on any
+    process's stderr, and in every node the native tier (its ready line)
+    and deps_kernel laps > 0 (a node's K1 launches: kernel launches in
+    other processes are counted by their laps), which with its
+    recovery_kernel laps make its device_batches, and wavefront_kernel laps
+    == its wave_batches.  It prints the lane's acked txns a wall second, the
+    client's p50 and p99 ack latency, its wall seconds, each node's
+    tiers, device counters and laps (counts and summed ms), and the nodes'
+    merged fast-path ratio, txn and phase latencies and loop health.
 The tolerance everywhere is exact equality: every output is integer or bool.
 
 Then, on lines of their own: the card's name and power limit (nvidia-smi),
@@ -149,7 +178,9 @@ import io
 import json
 import os
 import statistics
+import subprocess
 import sys
+import sysconfig
 import time
 
 import numpy as np
@@ -192,10 +223,199 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
         if a.numel() else 0
 
 
+NATIVE_SOURCES = {"sorted_arrays": ("_sorted_arrays.cpp", "_accord_native"),
+                  "cfk": ("_cfk_core.cpp", "_accord_cfk"),
+                  "wire": ("_wire_codec.cpp", "_accord_wire")}
+
+
+def build_native() -> dict:
+    """Build (or load) the port's three C++ extensions and time each; raise
+    with g++'s message when one is missing.  It must run before anything
+    else of the package is imported: the sorted arrays build when
+    ``accord_tpu_torch.native`` is first imported.  -> {name: seconds}"""
+    for knob, off in (("ACCORD_NO_NATIVE", "1"), ("ACCORD_NATIVE", "0")):
+        check(os.environ.get(knob) != off,
+              f"{knob}={off} selects the Python tier; the card runs native")
+    include = sysconfig.get_paths()["include"]
+    check(os.path.exists(os.path.join(include, "Python.h")),
+          f"no Python.h under {include}: the native tier cannot build")
+    t0 = time.perf_counter()
+    from accord_tpu_torch import native
+    seconds = {"sorted_arrays": time.perf_counter() - t0}
+    for name, get in (("cfk", native.get_cfk), ("wire", native.get_wire)):
+        t0 = time.perf_counter()
+        get()
+        seconds[name] = time.perf_counter() - t0
+    loaded = {"sorted_arrays": native.get(), "cfk": native.get_cfk(),
+              "wire": native.get_wire()}
+    for name, mod in loaded.items():
+        if mod is None:  # the package fell back: build again for the message
+            try:
+                native._build_and_load(*NATIVE_SOURCES[name])
+                why = "it built now, but did not load at first use"
+            except subprocess.CalledProcessError as e:
+                why = e.stderr.decode(errors="replace")
+            except Exception as e:  # noqa: BLE001 — reported, then raised
+                why = repr(e)
+            raise AssertionError(f"the native {name} extension is missing: "
+                                 f"{why}")
+    return seconds
+
+
+NATIVE = {"sorted_arrays": "native", "cfk": "native", "wire": "native"}
+
+
+def real_socket_host(card: str, device=None):
+    """Phase 15: (a) three TcpHost nodes in this process, (b) the tcp+device
+    lane's three node processes at its defaults.  `device` None is the card;
+    "cpu" rehearses the phase without one."""
+    from accord_tpu_torch import bench
+    from accord_tpu_torch.host.tcp import native_tiers
+    from accord_tpu_torch.impl.device_store import DeviceCommandStore
+    from accord_tpu_torch.ops import cuda_kernels as ck
+    from accord_tpu_torch.workload import tcp_cluster_txns
+
+    on_card = device is None
+    # (a) three TcpHost nodes in this process, their stores on the card
+    tcp_env = {"ACCORD_TCP_DEVICE_STORE": "1", "ACCORD_TCP_DEVICE_VERIFY": "1",
+               "ACCORD_TCP_FLUSH_US": "500", "ACCORD_PROFILE": "1"}
+    saved = {k: os.environ.get(k) for k in (*tcp_env, "ACCORD_TCP_DEVICE")}
+    os.environ.update(tcp_env)
+    if on_card:
+        os.environ.pop("ACCORD_TCP_DEVICE", None)  # unset: the card
+    else:
+        os.environ["ACCORD_TCP_DEVICE"] = device
+    agent_err = io.StringIO()
+    try:
+        ck.reset_launch_counts()
+        with contextlib.redirect_stderr(agent_err):
+            cl = tcp_cluster_txns()
+        if on_card:
+            torch.cuda.synchronize()
+        tcp_launches = {k.name: k.launches for k in ck.KERNELS}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(native_tiers() == NATIVE, f"host tiers {native_tiers()}")
+    stores = cl["stores"]
+    check(len(stores) == 3
+          and all(type(s) is DeviceCommandStore and s.verify
+                  and s.device.type == ("cuda" if on_card else "cpu")
+                  for s in stores),
+          f"TCP host stores {[(type(s).__name__, s.device) for s in stores]}")
+    check(not any(s.device_disabled for s in stores)
+          and sum(s.device_hits for s in stores) > 0,
+          "a TCP host store left its device tier or served no scan")
+    check(not any(b in agent_err.getvalue()
+                  for b in ("Traceback", "uncaught:", "handled:")),
+          f"a TCP host's agent reported an exception:\n"
+          f"{agent_err.getvalue()}")
+    laps = bench.summed_profile_laps(n.obs.registry.snapshot()
+                                     for n in cl["nodes"])
+    summed = {c: sum(getattr(s, c) for s in stores)
+              for c in ("device_batches", "device_wave_batches",
+                        "device_hits", "device_misses",
+                        "device_flush_windows")}
+    k1_flushes = laps.get("deps_kernel", (0, 0))[0]
+    # plain torch on the CPU launches nothing
+    check(tcp_launches["deps_tile"] == (k1_flushes if on_card else 0)
+          and k1_flushes > 0
+          and k1_flushes + laps.get("recovery_kernel", (0, 0))[0]
+          == summed["device_batches"],
+          f"TCP host K1 launches {tcp_launches['deps_tile']}, laps {laps}, "
+          f"{summed}")
+    check(tcp_launches["wavefront"]
+          == (summed["device_wave_batches"] if on_card else 0),
+          f"TCP host K2 launches {tcp_launches['wavefront']}, {summed}")
+    check(not tcp_launches["keyset_windows"]
+          and not tcp_launches["range_stab"],
+          f"TCP host launches {tcp_launches}")
+    log(f"[tcp] {card}: three TcpHost nodes in this process, host tiers "
+        f"{native_tiers()}, 20 appends over 3 keys in {cl['seconds']:.3f} s "
+        f"({20 / cl['seconds']:.3f} acked txns a wall second), strictly "
+        f"serializable; device counters {summed}; launches "
+        f"{ {k: v for k, v in tcp_launches.items() if v} }; laps (count, ms) "
+        + ", ".join(f"{k} ({c}, {ms:.3f})" for k, (c, ms) in
+                    sorted(laps.items())))
+
+    # (b) the tcp+device lane: three node processes, their stores on the
+    # card, through the lane's command line
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("ACCORD_TCP_", "ACCORD_BENCH_TCP_"))
+           and k not in ("ACCORD_SHARDS", "ACCORD_PIPELINE")}
+    env["ACCORD_PROFILE"] = "1"
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "accord_tpu_torch.bench", "--config", "tcp",
+         *(() if on_card else ("--device", device))],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600, env=env)
+    wall = time.perf_counter() - t0
+    bad = [b for b in ("Traceback", "uncaught:", "handled:")
+           if b in out.stderr]
+    check(out.returncode == 0 and not bad,
+          f"tcp lane: exit {out.returncode}, {bad}; stderr tail:\n"
+          f"{out.stderr[-4000:]}")
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    nodes = line["per_node"]
+    check(line["verified"] == "strict-serializable"
+          and line["device"] == ("cuda" if on_card else "cpu")
+          and line["ops"] == 400 and line["acked"] >= 360
+          and len(nodes) == 3,
+          f"tcp lane: {line}")
+    for n in nodes:
+        c, nl = n["device"], n["laps"]
+        check(n["native"] == NATIVE, f"tcp lane node {n['node']}: {n}")
+        check(nl.get("deps_kernel", 0) > 0
+              and nl["deps_kernel"] + nl.get("recovery_kernel", 0)
+              == c["device_batches"]
+              and nl.get("wavefront_kernel", 0) == c["device_wave_batches"],
+              f"tcp lane node {n['node']}: counters {c}, laps {nl}")
+    lane_laps = {}
+    for n in nodes:
+        for k, v in n["laps"].items():
+            lane_laps[k] = lane_laps.get(k, 0) + v
+    check(lane_laps.get("wavefront_kernel", 0) > 0,
+          f"tcp lane: no flush of 2 or more Applies reached K2: {lane_laps}")
+    rate = (f"{line['value']:.3f} acked txns a wall second, ack p50 "
+            f"{line['ack_p50_ms']:.3f} ms, p99 {line['ack_p99_ms']:.3f} ms, "
+            f"{line['wall_seconds']:.3f} s of traffic" if on_card
+            else "no rate on the CPU")
+    log(f"[tcp] {card}: tcp+device lane, {line['ops']} ops, "
+        f"{line['acked']} acked, strictly serializable; {rate}; "
+        f"{wall:.1f} s with the processes' start; per node "
+        + "; ".join(f"node {n['node']} {n['native']} {n['device']} laps "
+                    f"{n['laps']}" for n in nodes)
+        + f"; K1 launches {lane_laps['deps_kernel']}, K2 launches "
+        f"{lane_laps['wavefront_kernel']} (laps summed over the nodes)")
+    obs = line["obs"]
+    log(f"[tcp] {card}: tcp+device lane, where the time goes: each node's "
+        f"laps summed (ms) "
+        + "; ".join(f"node {n['node']} "
+                    + ", ".join(f"{k} {v:.3f}" for k, v in
+                                sorted(n["lap_ms"].items()))
+                    for n in nodes)
+        + "; the nodes' merged summary: "
+        + json.dumps({k: obs[k] for k in ("fast_path_ratio", "recoveries",
+                                          "txn_latency_us",
+                                          "phase_latency_us", "loop")}))
+    log(f"[tcp] lane line: "
+        f"{json.dumps({k: v for k, v in line.items() if k != 'obs'})}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    # ---- 1. build: the native C++ tier first (importing the package builds
+    # it), then the CUDA kernels
+    native_s = build_native()
+    log(f"[build] native tier (g++): "
+        + ", ".join(f"{n} {s:.1f}s" for n, s in native_s.items())
+        + f"; Python.h under {sysconfig.get_paths()['include']}")
     from accord_tpu_torch import bench, tpcc
     from accord_tpu_torch.bench import StoreBench
     from accord_tpu_torch.entry import dryrun_multichip, entry
@@ -228,7 +448,6 @@ def main() -> int:
     err = {"deps_tile": 0, "wavefront": 0, "keyset_windows": 0,
            "range_stab": 0}
 
-    # ---- 1. build
     t0 = time.perf_counter()
     seconds = ck.build()
     log(f"[build] {', '.join(f'{n} {s:.1f}s' for n, s in seconds.items())}; "
@@ -943,6 +1162,10 @@ def main() -> int:
 
     # ---- 13. the protocol store tier
     card = card_name_and_power_limit()
+    from accord_tpu_torch.host.tcp import native_tiers
+    tiers = native_tiers()
+    check(tiers == NATIVE, f"host tiers {tiers}")
+    tier = "host tier " + ", ".join(f"{k} {v}" for k, v in tiers.items())
     sb = StoreBench(n_history=STORE_HISTORY, device=dev, n_shards=n_shards)
     n_hist = len(sb.plan[1])
     log(f"[store] {card}: history of {STORE_HISTORY} txns in {n_hist} "
@@ -958,7 +1181,8 @@ def main() -> int:
     hist_s = sb.load_history(hist_progress)
     e_store = sb.entries()
     hc = device_counters(sb.flat.store)
-    log(f"[store] {card}: history loaded in {hist_s:.1f} s; E = {e_store}; "
+    log(f"[store] {card}, {tier}: history loaded in {hist_s:.1f} s; "
+        f"E = {e_store}; "
         f"the flat store flushed {hc['device_flush_windows']} windows, "
         f"{hc['device_batches']} K1 batches of {hc['device_batched_probes']} "
         f"probes, hits {hc['device_hits']} misses {hc['device_misses']} "
@@ -1001,7 +1225,8 @@ def main() -> int:
     def store_log(w, extra=""):
         c = w.counters
         serve = w.wall_ms - sum(w.laps.values())
-        log(f"[store] {card}: {w.name} window, {len(w.results)} ops: "
+        log(f"[store] {card}, {tier}: {w.name} window, {len(w.results)} "
+            f"ops: "
             f"{w.wall_ms:.1f} ms submit to drain; laps "
             + ", ".join(f"{k} {v:.3f} ms" for k, v in w.laps.items())
             + f"; the rest (serving the ops) {serve:.1f} ms; hits "
@@ -1123,19 +1348,17 @@ def main() -> int:
               f"{name}: a store left its device tier or an agent failed")
         # every store's profiler laps, summed over the nodes' registries:
         # (count, ms) a kernel lap and ms a waterfall stage
-        laps, stages = {}, {}
-        for n in run.cluster.nodes.values():
-            hists = n.obs.registry.snapshot()["histograms"]
-            for lk, h in hists.get("accord_profile_kernel_us", {}).items():
-                c, ms = laps.get(parse_labels(lk)["kernel"], (0, 0.0))
-                laps[parse_labels(lk)["kernel"]] = (c + h["count"],
-                                                    ms + h["sum"] / 1e3)
+        snaps = [n.obs.registry.snapshot()
+                 for n in run.cluster.nodes.values()]
+        laps, stages = bench.summed_profile_laps(snaps), {}
+        for snap in snaps:
+            hists = snap["histograms"]
             for lk, h in hists.get("accord_profile_window_us", {}).items():
                 st = parse_labels(lk)["stage"]
                 stages[st] = stages.get(st, 0.0) + h["sum"] / 1e3
         summed = {c: sum(getattr(s, c) for s in stores)
                   for c in ("device_batches", "device_wave_batches")}
-        log(f"[protocol] {card}: {name} burn {wall:.1f} s wall, "
+        log(f"[protocol] {card}, {tier}: {name} burn {wall:.1f} s wall, "
             f"{run.stats.acks} acks, {run.stats.acks / wall:.3f} acked ops "
             f"per wall second, {len(stores)} stores; launches "
             f"{ {k: v for k, v in launched.items() if v} }; laps (count, ms) "
@@ -1175,6 +1398,9 @@ def main() -> int:
           f"mesh K2 launches {launched['wavefront']}, {summed}")
     check(not launched["keyset_windows"] and not launched["range_stab"],
           f"mesh launches {launched}")
+
+    # ---- 15. the real-socket host on the card
+    real_socket_host(card)
 
     kernels = [
         {"name": "deps_tile", "route": "cuda",

@@ -428,3 +428,35 @@ def test_mesh_arm_burn_on_card_matches_cpu(card):
     assert on_card["deps_tile"] > 0 and on_card["wavefront"] > 0, on_card
     assert not any(n["device"]["device_disabled"] or n["failures"]
                    for n in prints[0]["nodes"].values())
+
+
+@pytest.mark.slow
+def test_tcp_cluster_with_device_stores_on_card(card, monkeypatch):
+    """Three real-socket TcpHost nodes in this process with every command
+    store a DeviceCommandStore on the card (ACCORD_TCP_DEVICE unset), verify
+    on: the appends are acked and strictly serializable, scans are
+    device-served, and K1 launches once a deps flush (the profiler's
+    deps_kernel laps) and K2 once a wave batch."""
+    from accord_tpu_torch.bench import summed_profile_laps
+    from accord_tpu_torch.workload import tcp_cluster_txns
+
+    for k, v in (("ACCORD_TCP_DEVICE_STORE", "1"),
+                 ("ACCORD_TCP_DEVICE_VERIFY", "1"),
+                 ("ACCORD_TCP_FLUSH_US", "500"), ("ACCORD_PROFILE", "1")):
+        monkeypatch.setenv(k, v)
+    monkeypatch.delenv("ACCORD_TCP_DEVICE", raising=False)
+    monkeypatch.delenv("ACCORD_SHARDS", raising=False)
+    before = {k.name: k.launches for k in cuda_kernels.KERNELS}
+    out = tcp_cluster_txns()
+    launched = {k.name: k.launches - before[k.name]
+                for k in cuda_kernels.KERNELS}
+    stores = out["stores"]
+    assert all(s.device.type == "cuda" and not s.device_disabled
+               for s in stores)
+    assert sum(s.device_hits for s in stores) > 0
+    laps = summed_profile_laps(n.obs.registry.snapshot()
+                               for n in out["nodes"])
+    assert launched["deps_tile"] == laps["deps_kernel"][0] > 0, laps
+    assert launched["wavefront"] == sum(s.device_wave_batches
+                                        for s in stores)
+    assert not launched["keyset_windows"] and not launched["range_stab"]

@@ -193,12 +193,14 @@ def test_entry_points_refuse_without_cuda(monkeypatch):
 
 def test_port_imports_neither_jax_nor_accord_tpu():
     """In a fresh interpreter (this one has jax loaded by conftest), every
-    module of the port imports without loading jax or accord_tpu."""
+    module of the port imports without loading jax or accord_tpu (the
+    native package builds and loads its C++ extensions as it does)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import accord_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
-        "pkg.__name__ + '.')]\n"
+        "pkg.__name__ + '.') if not m.name.startswith("
+        "'accord_tpu_torch.native._')]\n"  # the built C++ extensions
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'accord_tpu'))\n"
@@ -207,9 +209,13 @@ def test_port_imports_neither_jax_nor_accord_tpu():
         " 'accord_tpu_torch.impl.device_store',"
         " 'accord_tpu_torch.local.commands', 'accord_tpu_torch.local.store',"
         " 'accord_tpu_torch.sim.burn', 'accord_tpu_torch.local.node',"
-        " 'accord_tpu_torch.coordinate.transaction'}\n"
+        " 'accord_tpu_torch.coordinate.transaction',"
+        " 'accord_tpu_torch.native', 'accord_tpu_torch.host.tcp',"
+        " 'accord_tpu_torch.host.maelstrom', 'accord_tpu_torch.shard.worker',"
+        " 'accord_tpu_torch.journal', 'accord_tpu_torch.journal.wal',"
+        " 'accord_tpu_torch.topology.geo'}\n"
         "print(len(names), bad, sorted(need - set(names)))\n"
-        "sys.exit(1 if bad or need - set(names) or len(names) < 124 else 0)\n")
+        "sys.exit(1 if bad or need - set(names) or len(names) < 139 else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
