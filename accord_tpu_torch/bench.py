@@ -1,9 +1,11 @@
-"""Bench lanes of the port: ``default``, ``rangestress``, ``tpcc`` and ``tcp``.
+"""Bench lanes of the port: ``default``, ``rangestress``, ``tpcc``, ``tcp`` and
+the sim SLO lanes.
 
     python -m accord_tpu_torch.bench --config default        (on the card)
     python -m accord_tpu_torch.bench --config rangestress
     python -m accord_tpu_torch.bench --config tpcc
     python -m accord_tpu_torch.bench --config tcp
+    python -m accord_tpu_torch.bench --config slo-zipf1m
     python -m accord_tpu_torch.bench --config rangestress --device cpu
 
 Each lane prints one JSON line under the metric name the JAX package's
@@ -28,7 +30,8 @@ hardware it ran on: on the card, its name and power limit from
   JAX package's ``tcp+device`` lane): three node processes on real sockets
   (``host.tcp.TcpClusterClient``), each node's command stores
   ``DeviceCommandStore``s on the device (flush window
-  ``ACCORD_TCP_FLUSH_US``, default 1000 µs); 400 ops over 100 keys from a
+  ``ACCORD_TCP_FLUSH_US``, default 1000 µs) and the reference lane's 12 s
+  RPC timeout; 400 ops over 100 keys from a
   client 16 deep, seed 7 (``ACCORD_BENCH_TCP_OPS`` and
   ``ACCORD_BENCH_TCP_KEYS`` resize it), the same op mix, final chunked
   reads and ``full_verifier(witness_replay=False)``; at least 90% of the
@@ -38,6 +41,18 @@ hardware it ran on: on the card, its name and power limit from
   tier each native extension runs in (its ready line), its device counters
   and, with ``ACCORD_PROFILE=1``, its profiler's lap counts and their
   summed ms.
+
+* ``slo-zipf``, ``slo-range``, ``slo-tpcc``, ``slo-ephemeral``
+  (``bench.py::bench_slo_sim``), ``slo-zipf1m`` (``bench_slo_zipf1m``: the
+  bounded-memory lane, 1,000,000 keys with the stores' resident tier
+  capped) and ``slo-wan`` (``bench_slo_wan``: the geo-placed cluster):
+  open-loop arrivals through the sim's pipeline host, latencies in virtual
+  time from each op's intended start, the JAX lanes' verdicts.  Every
+  store is a DeviceCommandStore on the device (300 µs windows, verify on)
+  unless the lane function is given ``store_factory`` (the scalar store:
+  ``local.store.CommandStore``); the rates are virtual, so the card adds
+  only the lane's wall seconds.  They write no file: the JAX lanes'
+  history, ``--guard`` and ``--fill`` are not carried over.
 
 ``StoreBench`` drives the ``default`` cell's shape through the protocol
 store; ``chip_smoke.py`` (phase 13) runs it on the card.
@@ -55,11 +70,12 @@ of the counting run alone.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import random
 import time
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -380,10 +396,13 @@ def tcp_lane(device=None, nodes=3, keys=100, n_ops=400, seed=7,
     on_card = device is None or torch.device(device).type == "cuda"
     if on_card and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu'")
-    # the node processes inherit these: device stores on `device`, and the
-    # reference lane's 1-in-2 protocol-CPU sampling
+    # the node processes inherit these: device stores on `device`, the
+    # reference lane's 12 s RPC timeout (BASELINE.md:226: at the 1 s default,
+    # three node processes on one H100 stopped answering in about half the
+    # runs), and its 1-in-2 protocol-CPU sampling
     node_env = {"ACCORD_TCP_DEVICE_STORE": "1",
                 "ACCORD_TCP_DEVICE": None if device is None else str(device),
+                "ACCORD_HOST_RPC_TIMEOUT_S": "12",
                 "ACCORD_CPU_PROFILE": os.environ.get("ACCORD_CPU_PROFILE",
                                                      "2")}
     saved = {k: os.environ.get(k) for k in node_env}
@@ -517,8 +536,360 @@ def tcp_lane(device=None, nodes=3, keys=100, n_ops=400, seed=7,
     return result
 
 
+# ------------------------------------------------------------------ slo ----
+
+# the JAX bench.py's open-loop SLO lanes over the sim's pipeline host
+# (workload/openloop.py): arrivals on a seeded schedule in virtual time,
+# latency from each op's intended start
+SLO_SIM_LANES = {
+    "slo-zipf": dict(profile="zipfian", ops=600, rate_per_s=100.0, keys=48),
+    "slo-range": dict(profile="range_mix", ops=500, rate_per_s=80.0,
+                      keys=48),
+    "slo-tpcc": dict(profile="tpcc_neworder", ops=400, rate_per_s=60.0,
+                     keys=64),
+    "slo-ephemeral": dict(profile="ephemeral_read_heavy", ops=600,
+                          rate_per_s=150.0, keys=48),
+}
+# the burn's --flush-window-us default: the lanes' device stores
+SLO_FLUSH_WINDOW_US = 300
+
+
+def _slo_store_factory(store_factory=None, device=None):
+    """The SLO lanes' command stores: `store_factory` when given (the
+    scalar store is ``local.store.CommandStore``), else DeviceCommandStores
+    on `device` (None: the card, raising without one) with 300 µs flush
+    windows and every served scan verified."""
+    if store_factory is not None:
+        return store_factory
+    return DeviceCommandStore.factory(flush_window_us=SLO_FLUSH_WINDOW_US,
+                                      verify=True,
+                                      device=resolve_device(device))
+
+
+def _slo_hardware(store_factory, device, wall_s: float) -> dict:
+    """Where the stores ran and, on the card, the lane's wall seconds (its
+    rates are in virtual time, so no device time is in them)."""
+    if store_factory is not None:
+        return {"device": "cpu", "hardware": "cpu", "stores": "given",
+                "wall_seconds": None}
+    dev = resolve_device(device)
+    out = {**_hardware(dev), "stores": "device", "wall_seconds": None}
+    if dev.type == "cuda":
+        out["wall_seconds"] = wall_s
+    return out
+
+
+def slo_sim_lane(config: str, seed: int = 11, store_factory=None,
+                 device=None) -> dict:
+    """One sim SLO lane (``bench.py::bench_slo_sim``): the open-loop
+    generator through the pipeline host -> its JSON object with the
+    per-phase SLO report.  Raises unless more than half the ops were
+    acked and none is pending."""
+    from accord_tpu_torch.workload import run_open_loop_sim
+
+    lane = dict(SLO_SIM_LANES[config])
+    profile = lane.pop("profile")
+    factory = _slo_store_factory(store_factory, device)
+    t0 = time.perf_counter()
+    run = run_open_loop_sim(profile=profile, seed=seed,
+                            store_factory=factory, **lane)
+    wall = time.perf_counter() - t0
+    rep = run.report
+    counts = rep["counts"]
+    if not (counts["acked"] > 0.5 * lane["ops"] and counts["pending"] == 0):
+        raise AssertionError(counts)
+    return {
+        "metric": config.replace("-", "_") + "_txn_per_sec",
+        "value": rep["achieved_per_s"],
+        "unit": "txn/s",
+        "workload": f"open-loop {profile} via sim pipeline host "
+                    f"({rep['schedule']['kind']} arrivals)",
+        "ops": lane["ops"],
+        "acked": counts["acked"],
+        "shed": counts["shed"],
+        "offered_per_s": rep["offered_per_s"],
+        "open_p99_ms": round(rep["open_loop"]["p99_us"] / 1e3, 1),
+        "slo": rep,
+        **_slo_hardware(store_factory, device, wall),
+    }
+
+
+def _settled_audit(cluster) -> Tuple[list, list, int]:
+    """The burn's end-of-run checkers on a settled cluster: a census a node
+    (the leak detector) and one audit round a node -> (outcomes,
+    divergences, leak alarms)."""
+    cluster.attach_auditors(interval_s=0.0)
+    leak_alarms = sum(1 for a in cluster.auditors.values()
+                      if a.census_once()["leak_alarm"])
+    done = {}
+    for nid, a in cluster.auditors.items():
+        a.audit_once(on_done=lambda r, n=nid: done.__setitem__(n, r))
+    cluster.process_until(lambda: len(done) == len(cluster.auditors),
+                          max_items=5_000_000)
+    outcomes = [rd["outcome"] for r in done.values() if r
+                for rd in r["rounds"]]
+    divergences = [d for a in cluster.auditors.values()
+                   for d in a.divergences]
+    return outcomes, divergences, leak_alarms
+
+
+def slo_zipf1m_run(seed: int = 17, store_factory=None, device=None):
+    """The bounded-memory lane (``bench.py::bench_slo_zipf1m``): the zipfian
+    open-loop lane over 1,000,000 keys through the sim's protocol path
+    with every store's resident tier capped at ``max(25, ops // 80)``
+    commands (``local/paging.py``), then 25 s of virtual time to settle
+    (durability rounds, cleanup, CFK shells paging out), a fault-back of
+    up to 32 spilled commands a store, and the end-of-run census and
+    audit -> (its JSON object, the ``OpenLoopResult`` with its cluster).
+    Raises on any of the JAX lane's verdicts: a lost, failed or pending
+    op, half or fewer acked, a store that never evicted, no refaults, no
+    CFK evictions, a resident high water above 2 * cap + 64, a cap or high
+    water of 10% of the working set or more, an audit divergence or a leak
+    alarm.  The pager reads its cap from ``ACCORD_RESIDENT_CMDS``: the lane
+    sets it, and clears ``ACCORD_RESIDENT_BYTES``, for the run."""
+    from accord_tpu_torch.local.paging import node_paging_stats
+    from accord_tpu_torch.workload import run_open_loop_sim
+
+    ops, rate, keys, settle_s = 4000, 300.0, 1_000_000, 25.0
+    cap = max(25, ops // 80)  # under 10% of the working set
+    factory = _slo_store_factory(store_factory, device)
+    saved = {k: os.environ.pop(k, None)
+             for k in ("ACCORD_RESIDENT_CMDS", "ACCORD_RESIDENT_BYTES")}
+    os.environ["ACCORD_RESIDENT_CMDS"] = str(cap)
+    t0 = time.perf_counter()
+    try:
+        run = run_open_loop_sim(profile="zipfian", ops=ops, rate_per_s=rate,
+                                keys=keys, token_span=keys, seed=seed,
+                                store_factory=factory, keep_cluster=True)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    rep = run.report
+    counts = rep["counts"]
+    if not (counts["pending"] == 0 and counts["failed"] == 0
+            and counts["acked"] > 0.5 * ops):
+        raise AssertionError(counts)
+
+    cluster = run.cluster
+    end_s = cluster.now_s + settle_s
+    cluster.process_until(lambda: cluster.now_s >= end_s,
+                          max_items=50_000_000)
+
+    # the refault probe: spilled commands fault back intact through the
+    # store's public access path
+    hw = probed = 0
+    for node in cluster.nodes.values():
+        for store in node.command_stores.all():
+            pager = getattr(store, "pager", None)
+            if pager is None:
+                continue
+            hw = max(hw, pager.resident_high_water)  # before the probe
+            for txn_id in list(pager.spilled)[:32]:
+                cmd = store.commands[txn_id]
+                if cmd is None or cmd.save_status.name not in (
+                        "APPLIED", "INVALIDATED", "TRUNCATED_APPLY",
+                        "ERASED") or txn_id in pager.spilled:
+                    raise AssertionError(f"refault of {txn_id}: {cmd}")
+                probed += 1
+    if probed == 0:
+        raise AssertionError("nothing left spilled to probe")
+
+    outcomes, divergences, leak_alarms = _settled_audit(cluster)
+    if not outcomes or divergences:
+        raise AssertionError((outcomes, divergences))
+    if leak_alarms:
+        raise AssertionError("paged-out state tripped the leak detector")
+    wall = time.perf_counter() - t0
+
+    per_node = [node_paging_stats(n) for n in cluster.nodes.values()]
+    if any(p is None for p in per_node):
+        raise AssertionError("paging tier never armed")
+    working_set = counts["acked"]
+    hits = sum(p["hits"] for p in per_node)
+    misses = sum(p["misses"] for p in per_node)
+    paging = {
+        "cap": cap,
+        "working_set": working_set,
+        "resident_high_water": hw,
+        "resident": max(p["resident"] for p in per_node),
+        "spilled": max(p["spilled"] for p in per_node),
+        "hit_rate": round(hits / max(1, hits + misses), 4),
+        "evictions": sum(p["evictions"] for p in per_node),
+        "refaults": sum(p["refaults"] for p in per_node),
+        "refault_probe": probed,
+        "cfk_evictions": sum(p["cfk_evictions"] for p in per_node),
+        "cfk_restores": sum(p["cfk_restores"] for p in per_node),
+        "spill_disk_bytes": max(p["spill_disk_bytes"] for p in per_node),
+        "spill_compactions": sum(p["spill_compactions"] for p in per_node),
+        "lost_acks": 0,
+        "leak_alarms": leak_alarms,
+        "audit_agree": not divergences,
+    }
+    if any(p["evictions"] <= 0 for p in per_node):
+        raise AssertionError(f"budget never forced an eviction: {per_node}")
+    # in-flight commands are not evictable and evictions run at operation
+    # boundaries, so the high water may pass the cap, by a small multiple
+    ok = (hw <= 2 * cap + 64 and cap < 0.10 * working_set
+          and hw < 0.10 * working_set and paging["refaults"] > 0
+          and paging["cfk_evictions"] > 0)
+    if not ok:
+        raise AssertionError(paging)
+    rep["paging"] = paging
+    return {
+        "metric": "slo_zipf1m_txn_per_sec",
+        "value": rep["achieved_per_s"],
+        "unit": "txn/s",
+        "workload": f"open-loop zipfian over {keys} keys via sim pipeline "
+                    f"host, resident tier capped at {cap} commands/store "
+                    f"(journal-backed paging)",
+        "ops": ops,
+        "acked": counts["acked"],
+        "shed": counts["shed"],
+        "offered_per_s": rep["offered_per_s"],
+        "open_p99_ms": round(rep["open_loop"]["p99_us"] / 1e3, 1),
+        "resident_high_water": hw,
+        "hit_rate": paging["hit_rate"],
+        "slo": rep,
+        **_slo_hardware(store_factory, device, wall),
+    }, run
+
+
+def slo_zipf1m_lane(seed: int = 17, store_factory=None, device=None) -> dict:
+    return slo_zipf1m_run(seed, store_factory, device)[0]
+
+
+def slo_wan_lane(seed: int = 29, store_factory=None, device=None) -> dict:
+    """The multi-DC lane (``bench.py::bench_slo_wan``): the open-loop lane
+    on ``topology.geo.wan3_profile``'s cluster (a hub DC with the slow
+    quorum, three one-node DCs at 50/100/160 ms), swept over (electorate,
+    coordinator) placements, latencies as multiples of the hub-dc_b round
+    trip; then dc_b severed for the middle of a run (DcPartitionNemesis),
+    its fast-path ratio before, during and after, and the census and
+    audit on that cluster.  Raises on the JAX lane's verdicts.  The JAX
+    lane's flat-latency baseline row comes from its history file, which
+    the port does not keep: ``flat_tcp_baseline`` is None."""
+    from accord_tpu_torch.topology.geo import wan3_profile
+    from accord_tpu_torch.workload.openloop import run_wan_sim
+
+    ops, rate, keys = 240, 30.0, 240
+    factory = _slo_store_factory(store_factory, device)
+    geo = wan3_profile()
+    rtt = geo.rtt_us("dc_a", "dc_b")
+    minimal = frozenset({1, 2, 3, 5})  # fq=3: the hub pair and dc_b
+
+    t0 = time.perf_counter()
+    sweep = []
+    head = rep = None
+    for name, electorate, origin in (("span-min-in", minimal, 1),
+                                     ("all-in", None, 1),
+                                     ("min-out", minimal, 5)):
+        run = run_wan_sim(electorate=electorate, origin=origin, ops=ops,
+                          rate_per_s=rate, seed=seed, keys=keys, geo=geo,
+                          store_factory=factory)
+        r = run.report
+        counts = r["counts"]
+        if counts["pending"] or counts["failed"]:
+            raise AssertionError((name, counts))
+        wan = run.summary["wan"]
+        arm = {
+            "config": name,
+            "origin": run.schedule["origin"],
+            "origin_dc": geo.dc_of(run.schedule["origin"]),
+            "electorate": sorted(electorate) if electorate else None,
+            "fast_path_ratio": r["fast_path_ratio"],
+            "p50_rtt_multiple": round(r["open_loop"]["p50_us"] / rtt, 3),
+            "p99_rtt_multiple": round(r["open_loop"]["p99_us"] / rtt, 3),
+            "open_p50_us": r["open_loop"]["p50_us"],
+            "open_p99_us": r["open_loop"]["p99_us"],
+            "wan_crossings_per_txn": wan["wan_crossings_per_txn"],
+            "msgs_per_txn": wan["msgs_per_txn"],
+            "dcs": wan["dcs"],
+            "by_elect": wan["by_elect"],
+        }
+        sweep.append(arm)
+        if name == "span-min-in":
+            head, rep = arm, r
+
+    # the minimal-electorate fast path commits in about one WAN round
+    # trip, and both other placements pay for it
+    ok = (head["fast_path_ratio"] is not None
+          and head["fast_path_ratio"] >= 0.8
+          and head["p50_rtt_multiple"] <= 1.2
+          and all(worse["p50_rtt_multiple"] >= head["p50_rtt_multiple"] + 0.4
+                  for worse in sweep[1:]))
+    if not ok:
+        raise AssertionError(sweep)
+
+    dur_us = int(ops / rate * 1e6)
+    begin_us, end_us = int(0.25 * dur_us), int(0.66 * dur_us)
+    prun = run_wan_sim(electorate=minimal, origin=1, ops=ops,
+                       rate_per_s=rate, seed=seed + 1, keys=keys, geo=geo,
+                       partition=("dc_b", begin_us, end_us),
+                       store_factory=factory, keep_cluster=True)
+    pcounts = prun.report["counts"]
+    if pcounts["pending"] or pcounts["failed"]:
+        raise AssertionError(pcounts)
+    windows = prun.report["partition"]["windows"]
+    if not (windows["before"]["fast_path_ratio"] >= 0.8
+            and windows["during"]["fast_path_ratio"] is not None
+            and windows["during"]["fast_path_ratio"] < 0.5
+            and windows["after"]["fast_path_ratio"] >= 0.8):
+        raise AssertionError(windows)
+    outcomes, divergences, leak_alarms = _settled_audit(prun.cluster)
+    if not outcomes or divergences:
+        raise AssertionError((outcomes, divergences))
+    if leak_alarms:
+        raise AssertionError("partition arm tripped the leak detector")
+    wall = time.perf_counter() - t0
+
+    rep["wan"] = {
+        "rtt_us": rtt,
+        "wan_link": ["dc_a", "dc_b"],
+        "profile": geo.name,
+        "headline_config": "span-min-in",
+        "sweep": sweep,
+        "partition": {
+            "dc": "dc_b",
+            "begin_us": begin_us,
+            "end_us": end_us,
+            "windows": windows,
+            "lost_acks": pcounts["failed"] + pcounts["pending"],
+            "audit": {"agree": not divergences, "rounds": len(outcomes),
+                      "leak_alarms": leak_alarms},
+        },
+        "flat_tcp_baseline": None,
+    }
+    return {
+        "metric": "slo_wan_p50_rtt_multiple",
+        "value": head["p50_rtt_multiple"],
+        "unit": "x WAN RTT",
+        "workload": f"open-loop uniform over {keys} keys via geo-placed "
+                    f"sim ({geo.name}: hub slow quorum + 3 WAN DCs, "
+                    f"injected WAN RTT {rtt / 1000:.0f}ms), electorate "
+                    "sweep + dc_b partition arm",
+        "nodes": len(geo.node_dc),
+        "ops": ops,
+        "acked": rep["counts"]["acked"],
+        "fast_path_ratio": head["fast_path_ratio"],
+        "p99_rtt_multiple": head["p99_rtt_multiple"],
+        "wan_crossings_per_txn": head["wan_crossings_per_txn"],
+        "all_in_p50_rtt_multiple": sweep[1]["p50_rtt_multiple"],
+        "min_out_p50_rtt_multiple": sweep[2]["p50_rtt_multiple"],
+        "partition_during_ratio": windows["during"]["fast_path_ratio"],
+        "partition_after_ratio": windows["after"]["fast_path_ratio"],
+        "slo": rep,
+        **_slo_hardware(store_factory, device, wall),
+    }
+
+
 LANES = {"default": default_lane, "rangestress": rangestress_lane,
-         "tpcc": tpcc_lane, "tcp": tcp_lane}
+         "tpcc": tpcc_lane, "tcp": tcp_lane,
+         **{name: functools.partial(slo_sim_lane, name)
+            for name in SLO_SIM_LANES},
+         "slo-zipf1m": slo_zipf1m_lane, "slo-wan": slo_wan_lane}
 
 
 def main(argv: Optional[list] = None) -> int:

@@ -607,6 +607,15 @@ def _update_waiting_on_dep(safe_store: SafeCommandStore, cmd: Command,
     waiting_on = cmd.waiting_on
     if waiting_on is None or not waiting_on.is_waiting_on(dep_id):
         return
+    # paging fast path: a SPILLED dep is terminal by the eviction
+    # eligibility rule (applied/invalidated/truncated/erased — exactly the
+    # `is_applied_or_gone or is_truncated` branch below), so it clears
+    # without faulting its frame back in — a sync point's dep walk over a
+    # spilled million-key history must not thrash the resident tier
+    pager = getattr(safe_store.store, "pager", None)
+    if pager is not None and dep_id in pager.spilled:
+        waiting_on.set_applied_or_invalidated(dep_id)
+        return
     dep = safe_store.get(dep_id)
     if dep.is_applied_or_gone or dep.is_truncated:
         waiting_on.set_applied_or_invalidated(dep_id)

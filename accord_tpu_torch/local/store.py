@@ -547,11 +547,14 @@ class CommandStore:
         # transitions record per command transition and must not re-walk
         # the node->obs->flight attribute chain each time
         self._flight = getattr(obs, "flight", None)
-        # the bounded-memory paging tier of the JAX package
-        # (accord_tpu/local/paging.py, on only under ACCORD_RESIDENT_CMDS or
-        # ACCORD_RESIDENT_BYTES) is not ported yet: `commands` stays the
-        # plain dict, as the JAX store keeps it when paging is off
-        self.pager = None
+        # bounded-memory paging tier (local/paging.py): only when a
+        # resident budget is configured does `commands` become the
+        # fault-on-access mapping — unset budget keeps the PLAIN dict
+        # above, so paging off is bit-identical to the pre-paging store
+        from accord_tpu_torch.local.paging import pager_from_env
+        self.pager = pager_from_env(self)
+        if self.pager is not None:
+            self.commands = self.pager.commands
 
     # -- environment plumbing --
     @property
@@ -586,6 +589,12 @@ class CommandStore:
         cfk = self.cfks.get(key)
         if cfk is None:
             cfk = self.cfks[key] = CommandsForKey(key)
+            # an evicted-empty CFK (local/paging.py) left its key in the
+            # sorted index: restore its residual watermarks instead of
+            # double-inserting the index entry
+            if self.pager is not None \
+                    and self.pager.restore_cfk(key, cfk):
+                return cfk
             i = bisect_left(self._cfk_tokens, key.token)
             self._cfk_tokens.insert(i, key.token)
             self._cfk_keys.insert(i, key)
@@ -664,6 +673,12 @@ class CommandStore:
                 self.agent.on_uncaught_exception(error)
         elif result is not None:
             result.set_success(value)
+        # paging-tier evictions are deferred to the TOP-LEVEL operation
+        # boundary (after outcome delivery): nested submits and callbacks
+        # running under this frame never see a command evicted from under
+        # a live reference
+        if prev is None and self.pager is not None:
+            self.pager.on_op_boundary()
 
     # -- flush-window pinning (batch envelopes) --
     # A MultiPreAccept envelope (messages/multi.py) pins every store's

@@ -61,17 +61,6 @@ class BurnStats:
                 + (f" restarts={self.restarts}" if self.restarts else ""))
 
 
-def _refuse_unported_arms(**arms) -> None:
-    """The optional arms whose modules this package does not carry yet
-    (the on-disk journal, the geo profile, the corruption nemesis) raise
-    when asked for; their defaults keep the burn off them."""
-    wanted = sorted(name for name, value in arms.items()
-                    if value not in (None, 0, False))
-    if wanted:
-        raise NotImplementedError(
-            f"burn arm {', '.join(wanted)} not ported: ROADMAP item 11")
-
-
 class BurnRun:
     def __init__(self, seed: int, ops: int, nodes: int = 3, keys: int = 20,
                  drop_prob: float = 0.0, rf: int = None, n_shards: int = 4,
@@ -105,10 +94,6 @@ class BurnRun:
                  electorate=None,
                  dc_partitions: bool = False,
                  dc_partition_period_s: float = 2.0):
-        _refuse_unported_arms(restarts=restarts, journal_dir=journal_dir,
-                              corrupt_at=corrupt_at, geo=geo,
-                              electorate=electorate,
-                              dc_partitions=dc_partitions)
         if progress_log_factory == "default":
             # the progress log is a required component under message loss: an
             # acked txn whose Apply messages are all dropped is only repaired
@@ -746,30 +731,48 @@ def main(argv=None) -> int:
                         help="--flight-dump: filter to trace ids containing "
                              "this substring")
     args = parser.parse_args(argv)
-    if args.delayed_stores:
-        raise NotImplementedError(
-            "burn arm --delayed-stores not ported: ROADMAP item 11")
-
-    def make_store_factory():
-        if args.mesh_store:
-            from accord_tpu_torch.impl.device_store import MeshDeviceCommandStore
-            return MeshDeviceCommandStore.factory(
-                flush_window_us=args.flush_window_us,
-                verify=args.device_verify, device=args.device)
-        if args.device_store:
+    def make_store_factory(seed: int):
+        # built PER SEED: a shared delayed-store RandomSource would carry
+        # its state across --loops iterations, making a failure at loop
+        # seed N irreproducible by `-s N` alone (burn soaks found exactly
+        # that: a seed-15003 violation that vanished standalone)
+        if args.device_store or args.mesh_store:
+            if args.delayed_stores:
+                # delayed-executor nemesis composed OVER the device tier
+                from accord_tpu_torch.sim.delayed_store import delayed_device_factory
+                from accord_tpu_torch.utils.random_source import RandomSource
+                return delayed_device_factory(
+                    RandomSource(seed ^ 0x5D5D), mesh_store=args.mesh_store,
+                    flush_window_us=args.flush_window_us,
+                    verify=args.device_verify, device=args.device)
+            if args.mesh_store:
+                from accord_tpu_torch.impl.device_store import MeshDeviceCommandStore
+                return MeshDeviceCommandStore.factory(
+                    flush_window_us=args.flush_window_us,
+                    verify=args.device_verify, device=args.device)
             from accord_tpu_torch.impl.device_store import DeviceCommandStore
             return DeviceCommandStore.factory(
                 flush_window_us=args.flush_window_us,
                 verify=args.device_verify, device=args.device)
+        if args.delayed_stores:
+            from accord_tpu_torch.sim.delayed_store import DelayedCommandStore
+            from accord_tpu_torch.utils.random_source import RandomSource
+            return DelayedCommandStore.factory(RandomSource(seed ^ 0x5D5D))
         return None
 
     geo = None
     electorate = None
     if args.geo:
-        raise NotImplementedError("burn arm --geo not ported: ROADMAP item 11")
+        from accord_tpu_torch.topology.geo import wan3_profile
+        geo = wan3_profile()
+        args.nodes = len(geo.node_dc)
+        args.rf = None  # full replication: every shard spans every DC
+        if args.electorate:
+            electorate = frozenset(
+                int(t) for t in args.electorate.split(","))
     for i in range(args.loops):
         seed = args.seed + i
-        store_factory = make_store_factory()
+        store_factory = make_store_factory(seed)
         # one journal world per seed: reusing a directory across loops
         # would replay seed N's history into seed N+1's cluster
         journal_dir = (None if args.journal is None

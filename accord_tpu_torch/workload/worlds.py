@@ -753,7 +753,211 @@ PROTOCOL_BURNS = {
         "wave_depth=1 range_hits=3385 range_misses=12] infer[evidence=37 "
         "quorum_evidence=11 inferred_rounds=0 no_round=0 fence_refusals=0 "
         "safe_to_clean=1] audit[rounds=15 agree=8]"),
+    # the delayed-executor nemesis over the flat and the mesh store
+    # (SOAK_NOTES.md:201 and :203, at the soak's 60 ops a seed), a
+    # crash-restart whose WAL replay resolves a 45-probe window and a
+    # 16-deep wave plan (tests/test_wal.py:248's burn on device stores),
+    # and the geo profile with a narrowed electorate and DC partitions
+    # (README.md:853's arm)
+    "delayed": (
+        "-s 53000 -o 60 --device-store --device-verify --delayed-stores "
+        "--drop 0.15 --partitions --stores 4",
+        "seed=53000 ops=60 acks=8 nacks=52 shed=0 lost=0 pending=0 "
+        "lat_p50=122.3ms lat_p95=16428.6ms virtual_time=912.4s events=95629 "
+        "OK device[hits=1184 misses=0 batches=1358 probes=1362 max_batch=2 "
+        "cross_txn_windows=130 recovery_hits=1480 recovery_misses=45 "
+        "wave_batches=0 wave_planned=0 wave_executed=0 wave_depth=0 "
+        "range_hits=1043 range_misses=10] infer[evidence=25 quorum_evidence=4"
+        " inferred_rounds=0 no_round=0 fence_refusals=0 safe_to_clean=0] "
+        "audit[rounds=21 agree=12]"),
+    "delayed_mesh": (
+        "-s 55000 -o 60 --device-verify --mesh-store --delayed-stores --drop "
+        "0.15 --keys 6 --range-heavy",
+        "seed=55000 ops=60 acks=26 nacks=34 shed=0 lost=0 pending=0 "
+        "lat_p50=4357.8ms lat_p95=9116.7ms virtual_time=910.1s events=61837 "
+        "OK device[hits=1840 misses=0 batches=1282 probes=1283 max_batch=2 "
+        "cross_txn_windows=155 recovery_hits=1968 recovery_misses=24 "
+        "wave_batches=0 wave_planned=0 wave_executed=0 wave_depth=0 "
+        "range_hits=1831 range_misses=3] infer[evidence=16 quorum_evidence=6 "
+        "inferred_rounds=0 no_round=0 fence_refusals=0 safe_to_clean=0] "
+        "audit[rounds=18 agree=7]"),
+    "restart": (
+        "-s 23 -o 90 --device-store --device-verify --drop 0.05 --restart 1",
+        "seed=23 ops=90 acks=63 nacks=27 shed=0 lost=0 pending=0 restarts=1 "
+        "lat_p50=570.5ms lat_p95=5682.3ms virtual_time=740.7s events=28555 OK"
+        " device[hits=764 misses=72 batches=623 probes=684 max_batch=45 "
+        "cross_txn_windows=120 recovery_hits=324 recovery_misses=87 "
+        "wave_batches=1 wave_planned=34 wave_executed=34 wave_depth=16 "
+        "range_hits=730 range_misses=67] infer[evidence=3 quorum_evidence=2 "
+        "inferred_rounds=0 no_round=0 fence_refusals=0 safe_to_clean=0] "
+        "audit[rounds=12 agree=11]"),
+    "geo": (
+        "-s 29 -o 60 --geo --electorate 1,2,3,5 --dc-partitions "
+        "--device-store --device-verify",
+        "seed=29 ops=60 acks=55 nacks=5 shed=0 lost=0 pending=0 "
+        "lat_p50=201.1ms lat_p95=816.3ms virtual_time=72.6s events=17995 OK "
+        "device[hits=1033 misses=23 batches=1440 probes=1780 max_batch=11 "
+        "cross_txn_windows=770 recovery_hits=52 recovery_misses=18 "
+        "wave_batches=10 wave_planned=20 wave_executed=14 wave_depth=2 "
+        "range_hits=989 range_misses=8] infer[evidence=116 quorum_evidence=0 "
+        "inferred_rounds=0 no_round=0 fence_refusals=55 safe_to_clean=0] "
+        "audit[rounds=28 agree=28] dc_partitions[4]"),
 }
+
+# ``bench.slo_zipf1m_run`` (1,000,000 keys, 4,000 ops, Poisson at 300/s,
+# seed 17, 50 resident commands a store, 25 s to settle) with every store a
+# DeviceCommandStore (300 µs windows, verify on), as
+# ``open_loop_fingerprint`` reduces it after the lane: the JAX package's
+# lane (bench.py::bench_slo_zipf1m) on the CPU with the JAX
+# DeviceCommandStore, same windows, gave these
+ZIPF1M_DEVICE_FINGERPRINT = {
+    "counts": {"acked": 4000, "shed": 0, "failed": 0, "pending": 0},
+    "open_loop_us": {"count": 4000,
+                     "mean_us": 57750.8,
+                     "max_us": 190225,
+                     "p50_us": 53278,
+                     "p99_us": 137358,
+                     "p999_us": 170516},
+    "paging": {"cap": 50,
+               "working_set": 4000,
+               "resident_high_water": 51,
+               "resident": 47,
+               "spilled": 3966,
+               "hit_rate": 0.9021,
+               "evictions": 11998,
+               "refaults": 102,
+               "refault_probe": 96,
+               "cfk_evictions": 13665,
+               "cfk_restores": 0,
+               "spill_disk_bytes": 5890274,
+               "spill_compactions": 0,
+               "lost_acks": 0,
+               "leak_alarms": 0,
+               "audit_agree": True},
+    "nodes": {
+        1: {
+            "paging": {"hits": 37397,
+                       "misses": 4049,
+                       "evictions": 4002,
+                       "refaults": 37,
+                       "resident": 47,
+                       "resident_high_water": 77,
+                       "spilled": 3965,
+                       "cfk_evictions": 4555,
+                       "cfk_restores": 0,
+                       "spill_disk_bytes": 5871591,
+                       "spill_compactions": 0},
+            "device": {"device_disabled": 0,
+                       "device_hits": 4186,
+                       "device_misses": 37,
+                       "device_batches": 3385,
+                       "device_batched_probes": 4223,
+                       "device_max_batch": 5,
+                       "device_flush_windows": 11805,
+                       "device_cross_txn_windows": 3854,
+                       "device_window_txn_max": 6,
+                       "device_recovery_hits": 0,
+                       "device_recovery_misses": 0,
+                       "device_wave_batches": 297,
+                       "device_wave_planned": 607,
+                       "device_wave_executed": 589,
+                       "device_wave_max_depth": 2,
+                       "device_range_hits": 998,
+                       "device_range_misses": 1,
+                       "device_range_batches": 827,
+                       "device_range_candidates": 249,
+                       "device_compile_shapes": 14,
+                       "miss_no_probe": 0,
+                       "miss_version": 37,
+                       "miss_key_cover": 0},
+        },
+        2: {
+            "paging": {"hits": 37207,
+                       "misses": 4045,
+                       "evictions": 3999,
+                       "refaults": 33,
+                       "resident": 46,
+                       "resident_high_water": 81,
+                       "spilled": 3966,
+                       "cfk_evictions": 4555,
+                       "cfk_restores": 0,
+                       "spill_disk_bytes": 5890274,
+                       "spill_compactions": 0},
+            "device": {"device_disabled": 0,
+                       "device_hits": 4180,
+                       "device_misses": 43,
+                       "device_batches": 3375,
+                       "device_batched_probes": 4223,
+                       "device_max_batch": 4,
+                       "device_flush_windows": 11868,
+                       "device_cross_txn_windows": 3822,
+                       "device_window_txn_max": 5,
+                       "device_recovery_hits": 0,
+                       "device_recovery_misses": 0,
+                       "device_wave_batches": 277,
+                       "device_wave_planned": 563,
+                       "device_wave_executed": 548,
+                       "device_wave_max_depth": 2,
+                       "device_range_hits": 996,
+                       "device_range_misses": 1,
+                       "device_range_batches": 816,
+                       "device_range_candidates": 252,
+                       "device_compile_shapes": 15,
+                       "miss_no_probe": 0,
+                       "miss_version": 43,
+                       "miss_key_cover": 0},
+        },
+        3: {
+            "paging": {"hits": 37232,
+                       "misses": 4044,
+                       "evictions": 3997,
+                       "refaults": 32,
+                       "resident": 47,
+                       "resident_high_water": 79,
+                       "spilled": 3965,
+                       "cfk_evictions": 4555,
+                       "cfk_restores": 0,
+                       "spill_disk_bytes": 5887972,
+                       "spill_compactions": 0},
+            "device": {"device_disabled": 0,
+                       "device_hits": 4177,
+                       "device_misses": 46,
+                       "device_batches": 3384,
+                       "device_batched_probes": 4223,
+                       "device_max_batch": 4,
+                       "device_flush_windows": 11767,
+                       "device_cross_txn_windows": 3920,
+                       "device_window_txn_max": 5,
+                       "device_recovery_hits": 0,
+                       "device_recovery_misses": 0,
+                       "device_wave_batches": 272,
+                       "device_wave_planned": 551,
+                       "device_wave_executed": 537,
+                       "device_wave_max_depth": 2,
+                       "device_range_hits": 995,
+                       "device_range_misses": 1,
+                       "device_range_batches": 821,
+                       "device_range_candidates": 247,
+                       "device_compile_shapes": 15,
+                       "miss_no_probe": 0,
+                       "miss_version": 46,
+                       "miss_key_cover": 0},
+        },
+    },
+}
+
+
+def node_device_counters(node) -> Dict[str, int]:
+    """The ``device_*`` counters of a node's stores summed, with how many
+    disabled their device tier (empty for stores without one)."""
+    summed: Dict[str, int] = {}
+    for store in node.command_stores.all():
+        if hasattr(store, "device_hits"):
+            summed["device_disabled"] = (summed.get("device_disabled", 0)
+                                         + int(store.device_disabled))
+            for name, v in device_counters(store).items():
+                summed[name] = summed.get(name, 0) + v
+    return summed
 
 
 def burn_fingerprint(run) -> dict:
@@ -763,17 +967,10 @@ def burn_fingerprint(run) -> dict:
     tallies, the agent's recorded failures and the ``device_*`` counters of
     its stores summed (none for stores without a device tier)."""
     st = run.stats
-    nodes = {}
-    for nid, node in sorted(run.cluster.nodes.items()):
-        summed: Dict[str, int] = {}
-        for store in node.command_stores.all():
-            if hasattr(store, "device_hits"):
-                summed["device_disabled"] = (summed.get("device_disabled", 0)
-                                             + int(store.device_disabled))
-                for name, v in device_counters(store).items():
-                    summed[name] = summed.get(name, 0) + v
-        nodes[nid] = {"device": summed, "infer": dict(node.infer_stats),
-                      "failures": len(run.cluster.agents[nid].failures)}
+    nodes = {nid: {"device": node_device_counters(node),
+                   "infer": dict(node.infer_stats),
+                   "failures": len(run.cluster.agents[nid].failures)}
+             for nid, node in sorted(run.cluster.nodes.items())}
     return {
         "stats": (st.acks, st.nacks, st.shed, st.lost, st.pending,
                   st.restarts),
@@ -783,6 +980,25 @@ def burn_fingerprint(run) -> dict:
         "audit": [r["outcome"] for r in run.audit_rounds],
         "final": run._final_histories(),
         "nodes": nodes,
+    }
+
+
+def open_loop_fingerprint(run, node_paging_stats) -> dict:
+    """A finished open-loop run of either package (``workload.openloop.
+    run_open_loop_sim`` with ``keep_cluster=True``) as plain data: the
+    report's counts and its open-loop quantiles in virtual microseconds,
+    the ``paging`` section a lane added to the report, and per node its
+    ``node_paging_stats`` (`node_paging_stats` is that package's
+    ``local.paging.node_paging_stats``) and its stores' device counters,
+    as they stand when this is called."""
+    rep = run.report
+    return {
+        "counts": dict(rep["counts"]),
+        "open_loop_us": dict(rep["open_loop"]),
+        "paging": rep.get("paging"),
+        "nodes": {nid: {"paging": node_paging_stats(node),
+                        "device": node_device_counters(node)}
+                  for nid, node in sorted(run.cluster.nodes.items())},
     }
 
 

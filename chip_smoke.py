@@ -167,6 +167,29 @@ Phases; any failure raises, exits non-zero and prints no result lines:
     client's p50 and p99 ack latency, its wall seconds, each node's
     tiers, device counters and laps (counts and summed ms), and the nodes'
     merged fast-path ratio, txn and phase latencies and loop health.
+16. the bounded-memory store and the burn's remaining arms on the card,
+    the profiler sampling every flush window (ACCORD_PROFILE=1) and the
+    launch counts zeroed just before each run and read just after:
+    (a) the slo-zipf1m lane (bench.slo_zipf1m_run: 1,000,000 keys, 4,000
+    zipfian ops, Poisson at 300/s, seed 17, 50 resident commands a store,
+    25 s of virtual time to settle) with every store a DeviceCommandStore
+    on the card (300 us windows, verify on): the lane's verdicts (no lost,
+    failed or pending op; evictions on every node; resident high water at
+    most 2 * cap + 64 and under 10% of the working set; refaults, CFK
+    evictions, audit agreement, no leak alarm), its fingerprint
+    (workload.open_loop_fingerprint: counts, open-loop quantiles in
+    virtual us, the paging section, each node's paging stats and device
+    counters) == the JAX package's (workload.ZIPF1M_DEVICE_FINGERPRINT),
+    K1's launches == the deps_kernel laps of all stores, which with the
+    recovery laps make device_batches, and K2's == wave_batches; (b) four
+    more protocol arms through the burn CLI as in phase 14
+    (workload.PROTOCOL_BURNS: the delayed-executor stores over the flat
+    and the mesh store, a crash-restart whose replayed node resolves a
+    window of at least 45 probes through K1 and a wave plan through one K2
+    launch, the geo profile with a narrowed electorate and DC partitions):
+    each line == the JAX package's, K1 == the deps flushes (stacked K1 for
+    the mesh store), K2 == wave_batches, K4 and K5 not launched.  It prints
+    each run's wall seconds, launches and laps, and (a)'s paging stats.
 The tolerance everywhere is exact equality: every output is integer or bool.
 
 Then, on lines of their own: the card's name and power limit (nvidia-smi),
@@ -404,6 +427,83 @@ def real_socket_host(card: str, device=None):
                                           "phase_latency_us", "loop")}))
     log(f"[tcp] lane line: "
         f"{json.dumps({k: v for k, v in line.items() if k != 'obs'})}")
+
+
+def paged_store_on_card(card: str, tier: str, device=None):
+    """Phase 16 (a): the slo-zipf1m lane with its stores DeviceCommandStores
+    on the card, paging on.  `device` None is the card; "cpu" rehearses the
+    phase without one."""
+    from accord_tpu_torch import bench
+    from accord_tpu_torch.local.paging import node_paging_stats
+    from accord_tpu_torch.ops import cuda_kernels as ck
+    from accord_tpu_torch.workload import (ZIPF1M_DEVICE_FINGERPRINT,
+                                           open_loop_fingerprint)
+
+    on_card = device is None
+    saved = os.environ.get("ACCORD_PROFILE")
+    os.environ["ACCORD_PROFILE"] = "1"
+    try:
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        result, run = bench.slo_zipf1m_run(device=device)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {k.name: k.launches for k in ck.KERNELS}
+    finally:
+        if saved is None:
+            del os.environ["ACCORD_PROFILE"]
+        else:
+            os.environ["ACCORD_PROFILE"] = saved
+    cluster = run.cluster
+    stores = [s for n in cluster.nodes.values()
+              for s in n.command_stores.all()]
+    check(len(stores) > 0 and all(
+        s.pager is not None and s.verify
+        and s.device.type == ("cuda" if on_card else "cpu") for s in stores),
+        f"zipf1m stores {[(type(s).__name__, s.device) for s in stores]}")
+    check(not any(s.device_disabled for s in stores)
+          and not any(a.failures for a in cluster.agents.values()),
+          "zipf1m: a store left its device tier or an agent failed")
+    fp = open_loop_fingerprint(run, node_paging_stats)
+    check(fp == ZIPF1M_DEVICE_FINGERPRINT,
+          f"zipf1m fingerprint != the JAX package's: {fp}")
+    laps = bench.summed_profile_laps(n.obs.registry.snapshot()
+                                     for n in cluster.nodes.values())
+    summed = {c: sum(getattr(s, c) for s in stores)
+              for c in ("device_batches", "device_wave_batches",
+                        "device_hits", "device_misses",
+                        "device_range_batches")}
+    k1_flushes = laps.get("deps_kernel", (0, 0))[0]
+    check(launched["deps_tile"] == (k1_flushes if on_card else 0)
+          and k1_flushes > 0 and "sharded_kernel" not in laps
+          and k1_flushes + laps.get("recovery_kernel", (0, 0))[0]
+          == summed["device_batches"],
+          f"zipf1m K1 launches {launched['deps_tile']}, laps {laps}, "
+          f"{summed}")
+    check(launched["wavefront"]
+          == (summed["device_wave_batches"] if on_card else 0)
+          and laps.get("wavefront_kernel", (0, 0))[0]
+          == summed["device_wave_batches"],
+          f"zipf1m K2 launches {launched['wavefront']}, laps {laps}, "
+          f"{summed}")
+    check(not launched["keyset_windows"] and not launched["range_stab"],
+          f"zipf1m launches {launched}")
+    paging = result["slo"]["paging"]
+    log(f"[paging] {card}, {tier}: slo-zipf1m, {result['ops']} ops over "
+        f"1,000,000 keys, {result['acked']} acked, cap {paging['cap']} "
+        f"commands a store, {len(stores)} stores; {wall:.1f} s wall "
+        f"(lane, 25 s settle, refault probe, audit), "
+        f"{result['acked'] / wall:.3f} acked ops per wall second; virtual "
+        f"{result['value']} txn/s, open p99 {result['open_p99_ms']} ms; "
+        f"launches {({k: v for k, v in launched.items() if v})}; device "
+        f"counters {summed}; laps (count, ms) "
+        + ", ".join(f"{k} ({c}, {ms:.1f})" for k, (c, ms) in
+                    sorted(laps.items()))
+        + f"; paging {paging}; per node "
+        + "; ".join(f"{nid}: {n['paging']}"
+                    for nid, n in fp["nodes"].items()))
+    return result
 
 
 def main() -> int:
@@ -1318,6 +1418,15 @@ def main() -> int:
             def __init__(self, *a, **kw):
                 super().__init__(*a, **kw)
                 runs.append(self)
+                # a restarted node's killed incarnation launched kernels
+                # too: kept as it dies
+                self.killed = []
+                kill = self.cluster.kill_node
+
+                def recorded_kill(nid):
+                    self.killed.append(self.cluster.nodes[nid])
+                    kill(nid)
+                self.cluster.kill_node = recorded_kill
 
         out = io.StringIO()
         saved = burn.BurnRun, os.environ.get("ACCORD_PROFILE")
@@ -1341,15 +1450,15 @@ def main() -> int:
         check(rc == 0 and len(runs) == 1, f"{name} burn exited {rc}")
         check(line == want, f"{name} burn line != the JAX package's: {want}")
         run = runs[0]
-        stores = [s for n in run.cluster.nodes.values()
-                  for s in n.command_stores.all()]
+        # every incarnation of every node
+        run.built = run.killed + list(run.cluster.nodes.values())
+        stores = [s for n in run.built for s in n.command_stores.all()]
         check(not any(s.device_disabled for s in stores)
-              and not any(a.failures for a in run.cluster.agents.values()),
+              and not any(n.agent.failures for n in run.built),
               f"{name}: a store left its device tier or an agent failed")
         # every store's profiler laps, summed over the nodes' registries:
         # (count, ms) a kernel lap and ms a waterfall stage
-        snaps = [n.obs.registry.snapshot()
-                 for n in run.cluster.nodes.values()]
+        snaps = [n.obs.registry.snapshot() for n in run.built]
         laps, stages = bench.summed_profile_laps(snaps), {}
         for snap in snaps:
             hists = snap["histograms"]
@@ -1358,6 +1467,13 @@ def main() -> int:
                 stages[st] = stages.get(st, 0.0) + h["sum"] / 1e3
         summed = {c: sum(getattr(s, c) for s in stores)
                   for c in ("device_batches", "device_wave_batches")}
+        # the restarted nodes' live incarnations: the replayed windows
+        replayed = [s for nid in run.restarted_nodes
+                    for s in run.cluster.nodes[nid].command_stores.all()]
+        summed["replayed_max_batch"] = max(
+            (s.device_max_batch for s in replayed), default=0)
+        summed["replayed_wave_batches"] = sum(
+            s.device_wave_batches for s in replayed)
         log(f"[protocol] {card}, {tier}: {name} burn {wall:.1f} s wall, "
             f"{run.stats.acks} acks, {run.stats.acks / wall:.3f} acked ops "
             f"per wall second, {len(stores)} stores; launches "
@@ -1371,36 +1487,51 @@ def main() -> int:
             f"of {wall:.1f} s")
         return launched, laps, summed
 
-    # the flagship: a deps flush reaches K1 once (its deps_kernel lap), a
-    # recovery flush runs the plain recovery scans (its recovery_kernel
-    # lap), and device_batches counts both
-    launched, laps, summed = burn_on_card("flagship")
-    k1_flushes = laps.get("deps_kernel", (0, 0))[0]
-    check(launched["deps_tile"] == k1_flushes > 0
-          and k1_flushes + laps.get("recovery_kernel", (0, 0))[0]
-          == summed["device_batches"],
-          f"flagship K1 launches {launched['deps_tile']}, deps_kernel laps "
-          f"{k1_flushes}, laps {laps}, {summed}")
-    check(launched["wavefront"] == summed["device_wave_batches"] == 6,
-          f"flagship K2 launches {launched['wavefront']}, {summed}")
-    check(not launched["keyset_windows"] and not launched["range_stab"],
-          f"flagship launches {launched}")
-    # the mesh arm: each deps flush is one stacked K1 launch (its
-    # sharded_kernel lap) and never the flat one
-    launched, laps, summed = burn_on_card("mesh")
-    k1_flushes = laps.get("sharded_kernel", (0, 0))[0]
-    check(launched["deps_tile"] == k1_flushes > 0
-          and "deps_kernel" not in laps
-          and k1_flushes + laps.get("recovery_kernel", (0, 0))[0]
-          == summed["device_batches"],
-          f"mesh K1 launches {launched['deps_tile']}, laps {laps}, {summed}")
-    check(launched["wavefront"] == summed["device_wave_batches"] == 1,
-          f"mesh K2 launches {launched['wavefront']}, {summed}")
-    check(not launched["keyset_windows"] and not launched["range_stab"],
-          f"mesh launches {launched}")
+    # a deps flush reaches K1 once (the flat store's deps_kernel lap, the
+    # mesh store's sharded_kernel lap: one stacked launch, never the flat
+    # one), a recovery flush runs the plain recovery scans (its
+    # recovery_kernel lap), and device_batches counts both
+    def flushes_reach_k1(name, launched, laps, summed, lap, waves):
+        """K1 once a deps flush (`lap`, the flat or the stacked step's
+        kernel lap), never the other form; with the recovery flushes they
+        make device_batches; K2 once a wave batch."""
+        other = "sharded_kernel" if lap == "deps_kernel" else "deps_kernel"
+        k1_flushes = laps.get(lap, (0, 0))[0]
+        check(launched["deps_tile"] == k1_flushes > 0 and other not in laps
+              and k1_flushes + laps.get("recovery_kernel", (0, 0))[0]
+              == summed["device_batches"],
+              f"{name} K1 launches {launched['deps_tile']}, laps {laps}, "
+              f"{summed}")
+        check(launched["wavefront"] == summed["device_wave_batches"]
+              == waves, f"{name} K2 launches {launched['wavefront']}, "
+              f"{summed}")
+        check(not launched["keyset_windows"] and not launched["range_stab"],
+              f"{name} launches {launched}")
+
+    for name, lap, waves in (("flagship", "deps_kernel", 6),
+                             ("mesh", "sharded_kernel", 1)):
+        flushes_reach_k1(name, *burn_on_card(name), lap, waves)
 
     # ---- 15. the real-socket host on the card
     real_socket_host(card)
+
+    # ---- 16. the bounded-memory store and the burn's remaining arms
+    paged_store_on_card(card, tier)
+
+    # the restart arm's killed incarnation planned one wave batch before
+    # it died; the replayed one another
+    for name, lap, waves in (("delayed", "deps_kernel", 0),
+                             ("delayed_mesh", "sharded_kernel", 0),
+                             ("restart", "deps_kernel", 2),
+                             ("geo", "deps_kernel", 10)):
+        launched, laps, summed = burn_on_card(name)
+        flushes_reach_k1(name, launched, laps, summed, lap, waves)
+        if name == "restart":
+            # the replayed node's window: 45 probes in one K1 launch, its
+            # 16-deep wave plan in one K2 launch
+            check(summed["replayed_max_batch"] >= 45
+                  and summed["replayed_wave_batches"] == 1,
+                  f"restart arm's replayed windows {summed}")
 
     kernels = [
         {"name": "deps_tile", "route": "cuda",

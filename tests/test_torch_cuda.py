@@ -460,3 +460,47 @@ def test_tcp_cluster_with_device_stores_on_card(card, monkeypatch):
     assert launched["wavefront"] == sum(s.device_wave_batches
                                         for s in stores)
     assert not launched["keyset_windows"] and not launched["range_stab"]
+
+
+@pytest.mark.slow
+def test_open_loop_paging_on_card_matches_cpu(card, monkeypatch):
+    """The paging tests' open-loop run (300 zipfian ops over 4,000 keys, 25
+    resident commands a store, seed 17) with every store a
+    DeviceCommandStore on the card and on the CPU, verify on: the reports,
+    the nodes' paging stats and device counters are equal, and on the card
+    K1 launched once a deps flush (the profiler's deps_kernel laps) and K2
+    once a wave batch."""
+    from accord_tpu_torch.bench import summed_profile_laps
+    from accord_tpu_torch.impl.device_store import DeviceCommandStore
+    from accord_tpu_torch.local.paging import node_paging_stats
+    from accord_tpu_torch.workload import (open_loop_fingerprint,
+                                           run_open_loop_sim)
+
+    monkeypatch.setenv("ACCORD_RESIDENT_CMDS", "25")
+    monkeypatch.setenv("ACCORD_PROFILE", "1")
+    prints = []
+    for device in (card, "cpu"):
+        before = {k.name: k.launches for k in cuda_kernels.KERNELS}
+        run = run_open_loop_sim(
+            profile="zipfian", ops=300, rate_per_s=300.0, keys=4000,
+            token_span=4000, seed=17, keep_cluster=True,
+            store_factory=DeviceCommandStore.factory(
+                flush_window_us=300, verify=True, device=device))
+        prints.append((run.report["counts"],
+                       open_loop_fingerprint(run, node_paging_stats)))
+        launched = {k.name: k.launches - before[k.name]
+                    for k in cuda_kernels.KERNELS}
+        stores = [s for n in run.cluster.nodes.values()
+                  for s in n.command_stores.all()]
+        if device is card:
+            laps = summed_profile_laps(n.obs.registry.snapshot()
+                                       for n in run.cluster.nodes.values())
+            assert launched["deps_tile"] == laps["deps_kernel"][0] > 0
+            assert launched["wavefront"] == sum(s.device_wave_batches
+                                                for s in stores)
+        else:
+            assert not any(launched.values()), launched
+    assert prints[0] == prints[1]
+    assert all(n["paging"]["evictions"] > 0 and n["device"]["device_hits"]
+               and not n["device"]["device_disabled"]
+               for n in prints[0][1]["nodes"].values())
