@@ -1,12 +1,14 @@
-"""Bench lanes of the port: ``default``, ``rangestress``, ``tpcc``, ``tcp`` and
-the sim SLO lanes.
+"""Bench lanes of the port: every ``--config`` of the JAX package's
+``bench.py``.
 
     python -m accord_tpu_torch.bench --config default        (on the card)
     python -m accord_tpu_torch.bench --config rangestress
     python -m accord_tpu_torch.bench --config tpcc
     python -m accord_tpu_torch.bench --config tcp
     python -m accord_tpu_torch.bench --config slo-zipf1m
+    python -m accord_tpu_torch.bench --config slo-overload
     python -m accord_tpu_torch.bench --config rangestress --device cpu
+    python -m accord_tpu_torch.bench --config scalar         (host only)
 
 Each lane prints one JSON line under the metric name the JAX package's
 ``bench.py`` gives it, checks its answer as that lane does, and names the
@@ -54,6 +56,18 @@ hardware it ran on: on the card, its name and power limit from
   only the lane's wall seconds.  They write no file: the JAX lanes'
   history, ``--guard`` and ``--fill`` are not carried over.
 
+* ``pipeline`` (``bench_pipeline``, the JAX ``pipeline+device`` lane),
+  ``slo-tcp``, ``ephemeral``, ``slo-journal`` (``bench_slo_tcp``),
+  ``slo-reshard``, ``slo-overload`` and ``multicore``: node processes on
+  real sockets (``multicore``: one node, its stores in shard worker
+  processes), every command store a DeviceCommandStore on the device, the
+  JAX lanes' sizes, settings and verdicts.  Each line has a row for every
+  process that holds stores (``per_node_rows``: its native tiers, stores,
+  kernel launches, device counters and laps), which ``check_per_node``
+  holds to K1's launches == its deps flushes.
+* ``scalar``, ``journal``, ``audit``, ``maelstrom``, ``maelstrom-rw``: host
+  only in both packages; they take no ``--device`` and report host rates.
+
 ``StoreBench`` drives the ``default`` cell's shape through the protocol
 store; ``chip_smoke.py`` (phase 13) runs it on the card.
 
@@ -70,10 +84,15 @@ of the counting run alone.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
+import gc
 import json
 import os
 import random
+import shutil
+import tempfile
+import threading
 import time
 from typing import NamedTuple, Optional, Tuple
 
@@ -352,14 +371,21 @@ class StoreBench:
                            laps, wall_ms)
 
 
-# each node's device counters in the tcp lane's line, from its metrics
+# each node's device counters in a lane's per_node rows, from its metrics
 # snapshot: {key in the line: registry counter}
 TCP_DEVICE_COUNTERS = {
     "device_batches": "accord_device_kernel_batches_total",
     "device_hits": "accord_device_hits_total",
     "device_misses": "accord_device_misses_total",
     "device_flush_windows": "accord_device_flush_windows_total",
+    "device_cross_txn_windows": "accord_device_cross_txn_windows_total",
     "device_wave_batches": "accord_device_wave_batches_total",
+}
+# and its gauges, the largest over its stores: the widest flush window (txns)
+# and the widest K1 batch (probes)
+TCP_DEVICE_GAUGES = {
+    "device_window_txn_max": "accord_device_window_txn_max",
+    "device_max_batch": "accord_device_max_batch",
 }
 
 
@@ -378,41 +404,117 @@ def summed_profile_laps(registries) -> dict:
     return laps
 
 
-def tcp_lane(device=None, nodes=3, keys=100, n_ops=400, seed=7,
-             pipeline=16) -> dict:
-    """The JAX package's ``tcp+device`` lane (``bench.py::bench_tcp`` with
-    ``ACCORD_TCP_DEVICE_STORE=1``): `nodes` node processes on real sockets,
-    every command store a DeviceCommandStore on `device` (None: the card),
-    driven by one client `pipeline` deep with the reference's op mix ->
-    its JSON object.  Raises unless the history verifies strictly
-    serializable and more than 90% of the ops were acked."""
-    from accord_tpu_torch.host.tcp import TcpClusterClient
-    from accord_tpu_torch.obs.report import merge_node_snapshots
-    from accord_tpu_torch.sim.verify import Observation
-    from accord_tpu_torch.sim.verify_replay import full_verifier
+def _process_row(node: int, shard, metrics: dict, process: dict) -> dict:
+    counters, gauges = metrics["counters"], metrics["gauges"]
+    laps = summed_profile_laps([metrics])
+    return {
+        "node": node, "shard": shard, "pid": process["pid"],
+        "native": process["native"], "gc": process["gc"],
+        "stores": process["stores"],
+        # the node's own launches: the card's warm-up's taken out
+        "launches": {k: n - process["warm_launches"].get(k, 0)
+                     for k, n in process["launches"].items()},
+        "warm_launches": process["warm_launches"],
+        "device": {**{k: sum(counters.get(name, {}).values())
+                      for k, name in TCP_DEVICE_COUNTERS.items()},
+                   **{k: max(gauges.get(name, {}).values(), default=0)
+                      for k, name in TCP_DEVICE_GAUGES.items()}},
+        "laps": {k: count for k, (count, _) in laps.items()},
+        "lap_ms": {k: ms for k, (_, ms) in laps.items()}}
 
-    n_ops = int(os.environ.get("ACCORD_BENCH_TCP_OPS", n_ops))
-    keys = int(os.environ.get("ACCORD_BENCH_TCP_KEYS", keys))
-    on_card = device is None or torch.device(device).type == "cuda"
-    if on_card and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu'")
-    # the node processes inherit these: device stores on `device`, the
-    # reference lane's 12 s RPC timeout (BASELINE.md:226: at the 1 s default,
-    # three node processes on one H100 stopped answering in about half the
-    # runs), and its 1-in-2 protocol-CPU sampling
-    node_env = {"ACCORD_TCP_DEVICE_STORE": "1",
-                "ACCORD_TCP_DEVICE": None if device is None else str(device),
-                "ACCORD_HOST_RPC_TIMEOUT_S": "12",
-                "ACCORD_CPU_PROFILE": os.environ.get("ACCORD_CPU_PROFILE",
-                                                     "2")}
-    saved = {k: os.environ.get(k) for k in node_env}
+
+def per_node_rows(snaps) -> list:
+    """One row for each process that holds command stores, from the nodes'
+    metrics snapshots (``TcpClusterClient.fetch_metrics``): a node's own,
+    or, under the shard workers (``ACCORD_SHARDS``), each worker's from its
+    last stats frame in the node's reply (the node itself then holds no
+    store).  A row names the node (and shard), the process's native tiers,
+    its stores' classes and devices, its kernel launches, its device
+    counters and its profiler laps (counts and summed ms).  Raises when a
+    node sent no snapshot."""
+    if not snaps or any(s is None for s in snaps):
+        raise AssertionError("a node returned no metrics snapshot")
+    rows = []
+    for snap in snaps:
+        process = snap["process"]
+        if process["stores"]:
+            rows.append(_process_row(snap["node"], None, snap["metrics"],
+                                     process))
+        for shard, w in sorted((snap.get("workers") or {}).items(),
+                               key=lambda kv: int(kv[0])):
+            rows.append(_process_row(snap["node"], int(shard), w["metrics"],
+                                     w["process"]))
+    return rows
+
+
+def check_per_node(rows, device: str, workers: int = 0,
+                   idle=()) -> None:
+    """Raise unless every row's process served its flushes from
+    DeviceCommandStores on `device` ("cuda" or "cpu"), none of them off its
+    device tier, with deps flushes (``deps_kernel`` laps, ACCORD_PROFILE=1)
+    > 0 that with the recovery flushes make its ``device_batches``, and its
+    ``wavefront_kernel`` laps == its ``wave_batches``; on the card K1's
+    launches in the process == its deps flushes and K2's == its wave
+    batches, on the CPU none; K4 and K5 never; and the process holds off
+    full collections (``host.tcp.hold_off_full_collections``).  `workers`
+    > 0: the rows are the workers of one node, one a shard; the shards in
+    `idle` own no key of the traffic, and must show no flush at all
+    instead."""
+    if workers and sorted(r["shard"] for r in rows) != list(range(workers)):
+        raise AssertionError(f"want one row for each of {workers} workers: "
+                             f"{[(r['node'], r['shard']) for r in rows]}")
+    from accord_tpu_torch.host.tcp import FULL_COLLECTIONS_RARER
+    # this process keeps the interpreter's default
+    rarer = gc.get_threshold()[2] * FULL_COLLECTIONS_RARER
+    for r in rows:
+        if r["gc"]["threshold"][2] != rarer:
+            raise AssertionError(f"node {r['node']} shard {r['shard']}: its "
+                                 f"process did not hold off full "
+                                 f"collections: {r['gc']}")
+        if r["shard"] in idle:
+            if any(r["device"].values()) or any(r["launches"].values()):
+                raise AssertionError(f"idle shard {r['shard']}: {r}")
+            if not r["stores"] or any(
+                    torch.device(s["device"]).type != device
+                    for s in r["stores"]):
+                raise AssertionError(f"idle shard {r['shard']}: stores "
+                                     f"{r['stores']}")
+            continue
+        where = f"node {r['node']}" + ("" if r["shard"] is None
+                                       else f" shard {r['shard']}")
+        c, laps, n = r["device"], r["laps"], r["launches"]
+        if not r["stores"] or any(
+                s["type"] != "DeviceCommandStore" or s["disabled"]
+                or torch.device(s["device"]).type != device
+                for s in r["stores"]):
+            raise AssertionError(f"{where}: stores {r['stores']}")
+        deps = laps.get("deps_kernel", 0)
+        if not (deps > 0 and deps + laps.get("recovery_kernel", 0)
+                == c["device_batches"]
+                and laps.get("wavefront_kernel", 0)
+                == c["device_wave_batches"]):
+            raise AssertionError(f"{where}: laps {laps}, counters {c}")
+        on_card = device == "cuda"
+        want = {"deps_tile": deps if on_card else 0,
+                "wavefront": c["device_wave_batches"] if on_card else 0,
+                "keyset_windows": 0, "range_stab": 0}
+        if n != want:
+            raise AssertionError(f"{where}: launches {n}, want {want}")
+
+
+@contextlib.contextmanager
+def _environ(settings: dict):
+    """`settings` in os.environ for the block ({name: value, or None to
+    unset}), restored afterwards: the node processes spawned inside read
+    them."""
+    saved = {k: os.environ.get(k) for k in settings}
     try:
-        for k, v in node_env.items():
+        for k, v in settings.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-        c = TcpClusterClient(n_nodes=nodes)
+        yield
     finally:
         for k, v in saved.items():
             if v is None:
@@ -420,10 +522,76 @@ def tcp_lane(device=None, nodes=3, keys=100, n_ops=400, seed=7,
             else:
                 os.environ[k] = v
 
+
+# the node-process settings each device-store lane sets outright
+PIPELINE_ENV = {"ACCORD_PIPELINE": "1", "ACCORD_PIPELINE_MAX_BATCH": "8",
+                "ACCORD_PIPELINE_MAX_WAIT_US": "2000"}
+# bench.py::bench_slo_overload's QoS tuning (set there for a shared 1-CPU
+# box with scalar stores), for every node process
+OVERLOAD_QOS_ENV = {"ACCORD_QOS": "1", "ACCORD_QOS_LAG_TARGET_US": "30000",
+                    "ACCORD_QOS_NORMAL_PRESSURE": "2.0",
+                    "ACCORD_QOS_DEPTH_TARGET": "1.5",
+                    "ACCORD_QOS_RETRY_FLOOR_US": "40000",
+                    "ACCORD_QOS_RATE": "8", "ACCORD_QOS_BURST": "6"}
+
+
+def _device_store_env(device, **settings) -> dict:
+    """The settings a device-store lane's node processes run with: every
+    command store a DeviceCommandStore on `device` (None: the card, which
+    must be there), the reference's device-store RPC timeout of 12 s
+    (BASELINE.md:226; at the 1 s default three node processes on one H100
+    stopped answering in about half the runs while a node's first flushes
+    loaded CUDA modules in its loop, before ``host.tcp._warm_card`` ran
+    every flush step), no pipeline, QoS tier, journal or shard workers
+    unless `settings` set them."""
+    if (device is None or torch.device(device).type == "cuda") \
+            and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu'")
+    env = {"ACCORD_TCP_DEVICE_STORE": "1",
+           "ACCORD_TCP_DEVICE": None if device is None else str(device),
+           "ACCORD_HOST_RPC_TIMEOUT_S": "12",
+           "ACCORD_PIPELINE": None, "ACCORD_QOS": None,
+           "ACCORD_JOURNAL": None, "ACCORD_SHARDS": None}
+    env.update(settings)
+    return env
+
+
+def _lane_hardware(device, wall_s: float, **rates) -> dict:
+    """Where a device-store lane's stores ran; on the card with its name and
+    power limit, its wall seconds and `rates`, on the CPU None for each."""
+    if device is None or torch.device(device).type == "cuda":
+        return {"device": "cuda", "hardware": card_name_and_power_limit(),
+                "wall_seconds": wall_s, **rates}
+    return {"device": "cpu", "hardware": "cpu", "wall_seconds": None,
+            **{k: None for k in rates}}
+
+
+def tcp_lane(device=None, nodes=3, keys=100, n_ops=400, seed=7,
+             pipeline=16, env=None, metric="tcp_host_txn_per_sec") -> dict:
+    """The JAX package's ``tcp+device`` lane (``bench.py::bench_tcp`` with
+    ``ACCORD_TCP_DEVICE_STORE=1``): `nodes` node processes on real sockets,
+    every command store a DeviceCommandStore on `device` (None: the card),
+    driven by one client `pipeline` deep with the reference's op mix ->
+    its JSON object.  `env` adds node settings (``_device_store_env``).
+    Raises unless the history verifies strictly serializable and more than
+    90% of the ops were acked."""
+    from accord_tpu_torch.host.tcp import TcpClusterClient
+    from accord_tpu_torch.obs.report import merge_node_snapshots
+    from accord_tpu_torch.sim.verify import Observation
+    from accord_tpu_torch.sim.verify_replay import full_verifier
+
+    n_ops = int(os.environ.get("ACCORD_BENCH_TCP_OPS", n_ops))
+    keys = int(os.environ.get("ACCORD_BENCH_TCP_KEYS", keys))
+    # and the reference lane's 1-in-2 protocol-CPU sampling
+    node_env = _device_store_env(
+        device, ACCORD_CPU_PROFILE=os.environ.get("ACCORD_CPU_PROFILE", "2"),
+        **(env or {}))
+    with _environ(node_env):
+        c = TcpClusterClient(n_nodes=nodes)
+
     rng = random.Random(seed)
     obs, latencies_ms = [], []
     try:
-        tiers = {r["id"]: r["native"] for r in c.ready}
         state = {"value": 0, "submitted": 0}
         pending = {}
 
@@ -502,20 +670,9 @@ def tcp_lane(device=None, nodes=3, keys=100, n_ops=400, seed=7,
         c.close()
     if acked <= 0.9 * n_ops:
         raise AssertionError(f"acked {acked} of {completed} ({n_ops} ops)")
-    if any(s is None for s in snaps):
-        raise AssertionError("a node returned no metrics snapshot")
+    per_node = per_node_rows(snaps)
     merged = merge_node_snapshots(snaps)
-    per_node = []
-    for i, snap in enumerate(snaps, start=1):
-        counters = snap["metrics"]["counters"]
-        laps = summed_profile_laps([snap["metrics"]])
-        per_node.append({
-            "node": i, "native": tiers[i],
-            "device": {k: sum(counters.get(name, {}).values())
-                       for k, name in TCP_DEVICE_COUNTERS.items()},
-            "laps": {k: count for k, (count, _) in laps.items()},
-            "lap_ms": {k: ms for k, (_, ms) in laps.items()}})
-    result = {"metric": "tcp_host_txn_per_sec", "value": None,
+    result = {"metric": metric, "value": None,
               "unit": "txn/s",
               "workload": "lin-kv read+append mix, direct-socket cluster, "
                           "device stores",
@@ -523,17 +680,35 @@ def tcp_lane(device=None, nodes=3, keys=100, n_ops=400, seed=7,
               "client_inflight": pipeline, "seed": seed,
               "flush_window_us": int(os.environ.get("ACCORD_TCP_FLUSH_US",
                                                     "1000")),
-              "wall_seconds": None, "ack_p50_ms": None, "ack_p99_ms": None,
+              "ack_p50_ms": None, "ack_p99_ms": None,
               "verified": "strict-serializable",
               "obs": merged["summary"], "per_node": per_node}
-    if on_card:
-        result.update(device="cuda", hardware=card_name_and_power_limit(),
-                      value=acked / dt, wall_seconds=dt,
-                      ack_p50_ms=float(np.percentile(latencies_ms, 50)),
-                      ack_p99_ms=float(np.percentile(latencies_ms, 99)))
-    else:
-        result.update(device="cpu", hardware="cpu")
+    result.update(_lane_hardware(
+        device, dt, value=acked / dt,
+        ack_p50_ms=float(np.percentile(latencies_ms, 50)),
+        ack_p99_ms=float(np.percentile(latencies_ms, 99))))
     return result
+
+
+def pipeline_lane(device=None, nodes=3, keys=100, n_ops=400,
+                  seed=7) -> dict:
+    """The JAX package's ``pipeline+device`` lane (``bench.py::
+    bench_pipeline`` with ``ACCORD_TCP_DEVICE_STORE=1``): the tcp lane with
+    the ingest pipeline in every node process (``ACCORD_PIPELINE=1``, micro
+    batches of up to 8 submissions or 2,000 µs: one MultiPreAccept a
+    replica a batch, so a flush window holds several txns) and the client
+    64 deep.  It adds the widest flush window any node saw (txns) and
+    K1's widest batch (probes)."""
+    out = tcp_lane(device=device, nodes=nodes, keys=keys, n_ops=n_ops,
+                   seed=seed, pipeline=64, env=PIPELINE_ENV,
+                   metric="pipeline_tcp_host_txn_per_sec")
+    out.update(max_batch=8, max_wait_us=2000, device_store=True,
+               widest_flush_window_txns=max(
+                   r["device"]["device_window_txn_max"]
+                   for r in out["per_node"]),
+               widest_k1_batch=max(r["device"]["device_max_batch"]
+                                   for r in out["per_node"]))
+    return out
 
 
 # ------------------------------------------------------------------ slo ----
@@ -885,11 +1060,538 @@ def slo_wan_lane(seed: int = 29, store_factory=None, device=None) -> dict:
     }
 
 
+# ------------------------------------------------ open loop over sockets ----
+
+# the JAX bench.py's open-loop lanes over real node processes with the
+# ingest pipeline on (workload/openloop.py::run_open_loop_tcp): {config:
+# (profile, ops, offered rate a second)}; slo-journal adds the fsync-durable
+# WAL in every node process
+SLO_TCP_LANES = {"slo-tcp": ("zipfian", 400, 80.0),
+                 "ephemeral": ("ephemeral_read_heavy", 400, 100.0),
+                 "slo-journal": ("zipfian", 400, 80.0)}
+
+
+def _open_loop_line(config: str, run, workload: str, ops: int, device,
+                    wall: float) -> dict:
+    """An open-loop TCP lane's JSON object: the JAX lane's fields, each node
+    process's row (``per_node_rows``) and, on the card, the acked txns a
+    wall second, the open-loop p50 and p99 and the lane's wall seconds
+    (None on the CPU)."""
+    rep = run.report
+    counts = rep["counts"]
+    out = {"metric": config.replace("-", "_") + "_txn_per_sec",
+           "unit": "txn/s", "workload": workload, "ops": ops,
+           "acked": counts["acked"], "shed": counts["shed"],
+           "offered_per_s": rep["offered_per_s"], "slo": rep,
+           "per_node": per_node_rows(run.snapshots)}
+    out.update(_lane_hardware(
+        device, wall, value=rep["achieved_per_s"],
+        open_p50_ms=rep["open_loop"]["p50_us"] / 1e3,
+        open_p99_ms=rep["open_loop"]["p99_us"] / 1e3))
+    return out
+
+
+def slo_tcp_lane(config: str, device=None, keys: int = 64,
+                 seed: int = 7) -> dict:
+    """One open-loop lane over three node processes (``bench.py::
+    bench_slo_tcp``): wall-clock Poisson arrivals of `config`'s profile,
+    latency from each op's intended start, per-phase data from the submit
+    replies, every command store a DeviceCommandStore on `device` (None:
+    the card), the pipeline on.  ``slo-journal`` gives every node process a
+    fresh ``ACCORD_JOURNAL`` directory, removed afterwards.  Raises unless
+    more than half the ops were acked, and, for ``ephemeral``, unless the
+    ephemeral read's rounds (``eph_deps``) are among the phases."""
+    from accord_tpu_torch.workload import run_open_loop_tcp
+
+    profile, ops, rate = SLO_TCP_LANES[config]
+    journal = (tempfile.mkdtemp(prefix="accord-slo-journal-")
+               if config == "slo-journal" else None)
+    t0 = time.perf_counter()
+    try:
+        with _environ(_device_store_env(device, ACCORD_JOURNAL=journal,
+                                        **PIPELINE_ENV)):
+            run = run_open_loop_tcp(profile=profile, ops=ops,
+                                    rate_per_s=rate, keys=keys, seed=seed)
+    finally:
+        if journal is not None:
+            shutil.rmtree(journal, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    rep = run.report
+    counts = rep["counts"]
+    if not counts["acked"] > 0.5 * ops:
+        raise AssertionError(counts)
+    if profile == "ephemeral_read_heavy" and "eph_deps" not in rep["phases"]:
+        raise AssertionError(f"no ephemeral read rounds among the phases: "
+                             f"{sorted(rep['phases'])}")
+    out = _open_loop_line(
+        config, run, f"open-loop {profile} via TCP pipeline host "
+        f"({rep['schedule']['kind']} arrivals), device stores", ops, device,
+        wall)
+    out.update(nodes=3, keys=keys, seed=seed, journal=journal is not None)
+    return out
+
+
+def slo_reshard_lane(device=None, seed: int = 13) -> dict:
+    """The reshard lane (``bench.py::bench_slo_reshard``): the open-loop
+    zipfian lane over three node processes (2,400 ops at 80/s) with a
+    membership change a third of the way in: a node joins and bootstraps
+    under load (its device store built while the load runs), the client
+    re-learns routing, and founding node 1 drains and retires (its row
+    from a snapshot taken just before).  Raises unless more than half the
+    ops were acked, no acked append was lost and the nodes' audits
+    agree."""
+    from accord_tpu_torch.workload.openloop import run_reshard_tcp
+
+    ops, rate, frac = 2400, 80.0, 0.33
+    t0 = time.perf_counter()
+    with _environ(_device_store_env(device, **PIPELINE_ENV)):
+        run = run_reshard_tcp(ops=ops, rate_per_s=rate,
+                              reshard_at_frac=frac, seed=seed)
+    wall = time.perf_counter() - t0
+    rep = run.report
+    counts = rep["counts"]
+    if not counts["acked"] > 0.5 * ops:
+        raise AssertionError(counts)
+    rs = rep["reshard"]
+    if rs["lost_acks"] != 0:
+        raise AssertionError(rs["lost_detail"])
+    if not rs["audit"]["agree"]:
+        raise AssertionError(rs["audit"])
+    out = _open_loop_line(
+        "slo-reshard", run, "open-loop zipfian via TCP pipeline host with a "
+        "mid-window membership reshard (join+bootstrap, epoch gossip, "
+        "drain+retire), device stores", ops, device, wall)
+    out.update(seed=seed, reshard_at=frac,
+               availability_dip_pct=rs["availability"]["dip_pct"],
+               time_to_slo_recovery_s=rs["time_to_slo_recovery_s"],
+               lost_acks=rs["lost_acks"])
+    return out
+
+
+def slo_overload_lane(device=None, seed: int = 23,
+                      scalar_stores: bool = False) -> dict:
+    """The overload lane (``bench.py::bench_slo_overload``): an open-loop
+    sweep over three node processes from 0.5x to 10x a capacity of 120
+    txn/s, 6 s windows, mixed tenants and priority classes, the QoS
+    admission tier armed in every node (the JAX lane's tuning) and the
+    client honouring each nack's retry hint.  Raises on any of the JAX
+    lane's verdicts: the accounting is exact with nothing pending, some op
+    was shed, goodput at 5x is at least 90% of the peak, the high class's
+    p99 at 5x at most twice the uncontended p99, and every server-side
+    admission decision is accounted for.  `scalar_stores` runs the same
+    lane with the host's scalar stores (no device store) on this machine,
+    its rates beside `device`'s name: the comparison that tells a fault of
+    the device path from the lane's own limits."""
+    from accord_tpu_torch.workload.openloop import run_overload_tcp
+
+    window_s, capacity = 6.0, 120.0
+    env = _device_store_env("cpu" if scalar_stores else device,
+                            **PIPELINE_ENV, **OVERLOAD_QOS_ENV)
+    if scalar_stores:
+        env.update(ACCORD_TCP_DEVICE_STORE=None, ACCORD_TCP_DEVICE=None)
+    t0 = time.perf_counter()
+    with _environ(env):
+        run = run_overload_tcp(seed=seed, window_s=window_s,
+                               capacity_per_s=capacity)
+    wall = time.perf_counter() - t0
+    rep = run.report
+    ov = rep["overload"]
+    acc = ov["accounting"]
+    sq = ov.get("server_qos") or {}
+    verdicts = {
+        "exact": acc["exact"], "none_pending": acc["pending"] == 0,
+        "shed": acc["shed"] > 0,
+        "goodput_at_5x": ov["goodput_at_5x_frac_of_peak"] is not None
+        and ov["goodput_at_5x_frac_of_peak"] >= 0.9,
+        "high_p99_at_5x": ov["high_p99_at_5x_us"] is not None
+        and ov["high_p99_uncontended_us"] is not None
+        and ov["high_p99_at_5x_us"] <= 2 * ov["high_p99_uncontended_us"],
+        "server_identity": not sq.get("submitted")
+        or sq["admitted"] + sq["shed"] + sq["throttled"] == sq["submitted"],
+    }
+    if not all(verdicts.values()):
+        raise AssertionError(
+            {"verdicts": verdicts, "accounting": acc,
+             "goodput_at_5x_frac_of_peak": ov["goodput_at_5x_frac_of_peak"],
+             "high_p99_at_5x_us": ov["high_p99_at_5x_us"],
+             "high_p99_uncontended_us": ov["high_p99_uncontended_us"],
+             "server_qos": sq})
+    out = _open_loop_line(
+        "slo-overload", run, "open-loop overload sweep 0.5x-10x capacity "
+        "via TCP pipeline host, QoS admission armed (mixed tenants, "
+        "high/normal/best_effort, retry-after honored), device stores",
+        acc["submitted"], device, wall)
+    out.update(value=ov["peak_goodput_per_s"] if out["value"] is not None
+               else None, nodes=3, seed=seed, window_s=window_s,
+               acked=acc["acked"], shed=acc["shed"],
+               capacity_per_s=ov["capacity_per_s"],
+               goodput_at_5x_frac_of_peak=ov["goodput_at_5x_frac_of_peak"],
+               high_p99_at_5x_us=ov["high_p99_at_5x_us"],
+               high_p99_uncontended_us=ov["high_p99_uncontended_us"],
+               retry_honor_rate=ov["retry_honor_rate"], verdicts=verdicts,
+               stores="scalar" if scalar_stores else "device")
+    return out
+
+
+# the shard workers' stats reach their node every 2 s (shard/supervisor.py
+# _poll_stats); the multicore lane waits this long after its last reply so
+# each worker's row is read after the traffic
+WORKER_STATS_WAIT_S = 2.5
+
+
+def _workers_owning(tokens, n_workers: int) -> list:
+    """The shard workers of a one-node cluster (it owns the whole token
+    span) whose slice (``local.store.EvenSplit``) holds one of `tokens`."""
+    from accord_tpu_torch.host.maelstrom import TOKEN_SPAN
+    from accord_tpu_torch.local.store import EvenSplit
+    from accord_tpu_torch.primitives.keys import Range, Ranges
+
+    slices = EvenSplit(n_workers).split(Ranges([Range(0, TOKEN_SPAN)]))
+    return [i for i, sl in enumerate(slices)
+            if any(r.start <= t < r.end for r in sl for t in tokens)]
+
+
+def wait_workers_live(client, nodes=(1,), timeout_s: float = 120.0) -> None:
+    """Return once every shard worker of each of `nodes` is live (its
+    hello sent: a worker with a device store first imports the device
+    library, makes its context and warms it, seconds after its node
+    answers).  Raises after `timeout_s`."""
+    deadline = time.monotonic() + timeout_s
+    for nid in nodes:
+        req = 0
+        while True:
+            req += 1
+            client._send(nid, {"type": "shards", "req": f"live-{nid}-{req}"})
+            rows = None
+            while rows is None and time.monotonic() < deadline:
+                frame = client.recv(1.0)
+                body = (frame or {}).get("body", {})
+                if body.get("type") == "shards_reply" \
+                        and body.get("req") == f"live-{nid}-{req}":
+                    rows = body["shards"]
+            if rows and all(r["live"] for r in rows):
+                break
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"node {nid}'s shard workers not live: "
+                                   f"{rows}")
+            time.sleep(0.2)
+
+
+def multicore_lane(device=None, n_ops: int = 200, keys: int = 50,
+                   shards_list=(1, 2, 4), depth: int = 8, seed: int = 7,
+                   key_stride: int = 1) -> dict:
+    """The shard-worker lane (``bench.py::bench_multicore``): one node
+    process whose command stores run in ``ACCORD_SHARDS`` worker processes
+    (1: in the node's own loop), each a DeviceCommandStore on `device`
+    (None: the card) built by the worker itself, driven by one closed-loop
+    client `depth` deep with single-key appends, for each count of
+    `shards_list`.  A count's row holds its acked txns, and each process's
+    row (the node's, or each worker's from its stats frame); on the card,
+    its acked txns a wall second and wall seconds, timed from when every
+    worker is live (a worker with a device store warms the card first,
+    which the JAX lane's scalar workers do not).  Raises unless more than
+    90% of the ops were acked at every count.
+
+    Key k is token k * `key_stride`.  At the JAX lane's stride of 1 the 50
+    tokens all lie in the first worker's slice of the token span, so the
+    other workers take no traffic; a count's row names the workers that own
+    a key (``workers_with_keys``).  A stride of TOKEN_SPAN // `keys` spreads
+    the keys over every worker."""
+    from accord_tpu_torch.host.tcp import TcpClusterClient
+    from accord_tpu_torch.obs.report import merge_node_snapshots
+
+    try:
+        cpus = len(os.sched_getaffinity(0))
+    except AttributeError:
+        cpus = 1
+    table, obs_summary = {}, None
+    for n_shards in shards_list:
+        env = _device_store_env(
+            device, ACCORD_SHARDS=str(n_shards) if n_shards >= 2 else None,
+            ACCORD_CPU_PROFILE=os.environ.get("ACCORD_CPU_PROFILE", "2"))
+        rng = random.Random(seed + n_shards)
+        with _environ(env):
+            c = TcpClusterClient(n_nodes=1)
+        try:
+            if n_shards >= 2:
+                wait_workers_live(c)
+            t0 = time.perf_counter()
+            sub = done = acked = 0
+
+            def sub_one():
+                nonlocal sub
+                k = rng.randrange(keys) * key_stride
+                c.submit(1, [k], {k: sub + 1}, req=sub)
+                sub += 1
+
+            for _ in range(min(depth, n_ops)):
+                sub_one()
+            deadline = time.monotonic() + 300
+            while done < n_ops and time.monotonic() < deadline:
+                frame = c.recv(30.0)
+                body = (frame or {}).get("body", {})
+                if body.get("type") != "submit_reply":
+                    continue
+                done += 1
+                if body.get("ok"):
+                    acked += 1
+                if sub < n_ops:
+                    sub_one()
+            wall = time.perf_counter() - t0
+            if n_shards >= 2:
+                time.sleep(WORKER_STATS_WAIT_S)
+            snap = c.fetch_metrics(1)
+        finally:
+            c.close()
+        if acked <= 0.9 * n_ops:
+            raise AssertionError(f"{n_shards} shards: acked {acked} of "
+                                 f"{done} ({n_ops} ops)")
+        rows = per_node_rows([snap])
+        if obs_summary is None:
+            obs_summary = merge_node_snapshots([snap])["summary"]
+        table[str(n_shards)] = {
+            "acked": acked, "tier": "workers" if n_shards >= 2 else "in-loop",
+            "workers_with_keys": _workers_owning(
+                range(0, keys * key_stride, key_stride), n_shards),
+            "per_node": rows,
+            **_lane_hardware(device, wall,
+                             aggregate_txn_per_s=acked / wall)}
+    rates = [table[str(n)]["aggregate_txn_per_s"] for n in shards_list]
+    on_card = rates[0] is not None
+    best = (max(shards_list, key=lambda n: table[str(n)]
+                ["aggregate_txn_per_s"]) if on_card else None)
+    out = {"metric": "multicore_aggregate_txn_per_sec",
+           "value": table[str(best)]["aggregate_txn_per_s"] if on_card
+           else None,
+           "best_shards": best, "unit": "txn/s",
+           "workload": f"one node, ACCORD_SHARDS swept {list(shards_list)} "
+                       f"(shard worker processes), closed-loop client "
+                       f"depth {depth}, device stores",
+           "shards": list(shards_list), "cpus_available": cpus,
+           "per_shards": table,
+           "scaling_first_to_last": rates[-1] / rates[0] if on_card
+           else None,
+           "ops": n_ops, "keys": keys, "key_stride": key_stride,
+           "client_inflight": depth, "seed": seed, "obs": obs_summary}
+    out.update(_lane_hardware(device, sum(
+        t["wall_seconds"] or 0.0 for t in table.values())))
+    return out
+
+
+# ------------------------------------------------------------ host only ----
+# lanes that touch no device, in either package: they take no `device`
+
+def scalar_lane(n_keys: int = 256, n_existing: int = 8192,
+                n_batch: int = 128) -> dict:
+    """The scalar lane (``bench.py::bench_scalar``): the host's active-scan
+    hot loop (``CommandsForKey.map_reduce_active``, the walk the device
+    tier displaces) over each txn of a ``build_world`` window, one profiler
+    lap a txn -> edges a second on this host."""
+    cfks, batch = build_world(n_keys=n_keys, n_existing=n_existing,
+                              n_batch=n_batch)
+    by_key = {c.key: c for c in cfks}
+    prof = Profiler(Registry(), sample_n=1)
+    edges = 0
+
+    def count(_):
+        nonlocal edges
+        edges += 1
+
+    t0 = time.perf_counter()
+    for tid, keyset in batch:
+        prof.window_begin(None)
+        t = prof.begin()
+        for k in keyset:
+            by_key[k].map_reduce_active(tid, tid.kind.witnesses(), count)
+        prof.lap(t, "scalar_scan")
+        prof.window_end()
+    dt = max(time.perf_counter() - t0, 1e-9)
+    return {"metric": "scalar_edges_resolved_per_sec",
+            "value": round(edges / dt, 1), "unit": "edges/s",
+            "edges": edges, "txns": n_batch, "profile": prof.summary(),
+            "device": "host"}
+
+
+def journal_lane(n_append: int = 20000, inflight: int = 256,
+                 fsync_window_us: int = 2000, sync_ops: int = 640) -> dict:
+    """The WAL lane (``bench.py::bench_journal``): durable-acked appends of
+    one wire-encoded request, `inflight` at a time, each ack released from
+    the ``on_durable`` callback of the fsync that covers it; group commit
+    (a `fsync_window_us` window, `n_append` appends) against an fsync per
+    append (`sync_ops` appends).  Each run's directory is removed
+    afterwards."""
+    from accord_tpu_torch.journal.wal import JournalConfig, WriteAheadLog
+    from accord_tpu_torch.messages.commit import CommitInvalidate
+    from accord_tpu_torch.obs.report import summarize
+    from accord_tpu_torch.primitives.keys import (Route, RoutingKey,
+                                                  RoutingKeys)
+    from accord_tpu_torch.primitives.timestamp import (Domain, TxnId,
+                                                       TxnKind)
+
+    # a real journaled verb of small fixed encode cost: both modes pay the
+    # encoding alike, so the ratio is the fsync discipline's
+    msg = CommitInvalidate(
+        TxnId.create(1, 12345, TxnKind.WRITE, Domain.KEY, 1),
+        Route.of_keys(RoutingKey(11), RoutingKeys.of(11, 42)))
+
+    def run_mode(window_us: int, total: int) -> tuple:
+        d = tempfile.mkdtemp(prefix="bench-wal-")
+        try:
+            cfg = JournalConfig(d, fsync_window_us=window_us,
+                                segment_bytes=64 << 20, snapshot_segments=0)
+            wal = WriteAheadLog(d, config=cfg, retain=False)
+            window = threading.BoundedSemaphore(inflight)
+            acked = threading.Semaphore(0)
+            t0 = time.perf_counter()
+            for _ in range(total):
+                window.acquire()
+                seq = wal.append(msg)
+                wal.on_durable(seq, lambda: (window.release(),
+                                             acked.release()))
+            for _ in range(total):  # every ack seen before the clock stops
+                acked.acquire()
+            dt = max(time.perf_counter() - t0, 1e-9)
+            if wal.durable_seq < total:
+                raise AssertionError(f"durable {wal.durable_seq} < {total}")
+            snap = wal.registry.snapshot()
+            wal.close()
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        return total / dt, snap
+
+    group_tps, group_snap = run_mode(fsync_window_us, n_append)
+    sync_tps, _ = run_mode(0, sync_ops)
+    journal_obs = summarize(group_snap)["journal"]
+    return {"metric": "journal_group_commit_append_per_sec",
+            "value": round(group_tps, 1), "unit": "append/s",
+            "workload": f"durable-acked (on_durable callbacks, {inflight} "
+                        f"in flight) wire-encoded requests",
+            "appends": n_append, "fsync_window_us": fsync_window_us,
+            "fsync_per_append_per_sec": round(sync_tps, 1),
+            "group_vs_fsync_ratio": round(group_tps / max(sync_tps, 1e-9),
+                                          1),
+            "fsyncs_group": journal_obs["fsyncs"],
+            "batch_mean": journal_obs["group_commit_batch"]["mean"],
+            "obs": {"journal": journal_obs}, "device": "host"}
+
+
+def audit_lane(ops: int = 300, seed: int = 11) -> dict:
+    """The audit lane (``bench.py::bench_audit``): a scalar burn of `ops`
+    ops fills a 3-replica cluster; the best of three full digest walks and
+    census sweeps over every node, per resident command, as a percentage
+    of one txn's scalar active scans (rf = 3 over a 1,024-entry key
+    history)."""
+    from accord_tpu_torch.local.audit import census_node, digest_node
+    from accord_tpu_torch.local.cfk import CommandsForKey, InternalStatus
+    from accord_tpu_torch.primitives.keys import Key, Ranges
+    from accord_tpu_torch.primitives.timestamp import (TXNID_NONE, Domain,
+                                                       Timestamp, TxnId,
+                                                       TxnKind)
+    from accord_tpu_torch.sim.burn import BurnRun
+    from accord_tpu_torch.utils.random_source import RandomSource
+
+    run = BurnRun(seed, ops, durability_cycle_s=2.0, topology_changes=False)
+    run.run()
+    cluster = run.cluster
+    hi = Timestamp(1 << 30, 0, 0, 0)
+    total_cmds = sum(len(s.commands) for n in cluster.nodes.values()
+                     for s in n.command_stores.all())
+    best = None
+    folded = 0
+    for _ in range(3):
+        t0 = time.perf_counter()
+        folded = 0
+        for node in cluster.nodes.values():
+            for shard in node.topology.current().shards:
+                if node.id in shard.nodes:
+                    _d, n = digest_node(node, Ranges([shard.range]),
+                                        TXNID_NONE, hi)
+                    folded += n
+            census_node(node)
+        dt = time.perf_counter() - t0
+        best = dt if best is None else min(best, dt)
+    per_cmd_us = best / max(1, total_cmds) * 1e6
+
+    rng = RandomSource(3)
+    cfk = CommandsForKey(Key(1))
+    statuses = [InternalStatus.PREACCEPTED, InternalStatus.ACCEPTED,
+                InternalStatus.COMMITTED, InternalStatus.STABLE,
+                InternalStatus.APPLIED]
+    hlc = 1000
+    for _ in range(1024):
+        hlc += 1 + rng.next_int(2)
+        cfk.update(TxnId.create(1, hlc, rng.pick([TxnKind.READ,
+                                                  TxnKind.WRITE]),
+                                Domain.KEY, rng.next_int(8)),
+                   rng.pick(statuses), None)
+    probe = TxnId.create(1, hlc + 10, TxnKind.WRITE, Domain.KEY, 2)
+    kinds = probe.kind.witnesses()
+    sink = []
+    loop_best = None
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(200):
+            for _replica in range(3):
+                sink.clear()
+                cfk.map_reduce_active(probe, kinds, sink.append)
+        dt = (time.perf_counter() - t0) / 200 * 1e6
+        loop_best = dt if loop_best is None else min(loop_best, dt)
+    return {"metric": "audit_census_overhead_pct_of_scalar",
+            "value": round(per_cmd_us / loop_best * 100.0, 3),
+            "unit": "pct", "budget_pct": 2.0,
+            "sweep_us_per_resident_cmd": round(per_cmd_us, 3),
+            "scalar_txn_us": round(loop_best, 1),
+            "resident_cmds": total_cmds, "digest_folded": folded,
+            "audit_rounds_at_quiesce": len(run.audit_rounds),
+            "device": "host"}
+
+
+def maelstrom_lane(nodes: int = 3, keys: int = 100, n_ops: int = 400,
+                   single_key: bool = True, seed: int = 7) -> dict:
+    """The Maelstrom lanes (``bench.py::bench_maelstrom``): `nodes` node
+    processes speaking the Maelstrom JSON wire through one stdio router
+    (``host.runner.MaelstromRunner``), one client 16 deep, single-key
+    lin-kv ops or multi-key RMWs; the history is checked strictly
+    serializable, and more than 90% of the ops must be acked and checked.
+    The Maelstrom node builds no device store, in either package."""
+    from accord_tpu_torch.host.runner import MaelstromRunner
+
+    r = MaelstromRunner(n_nodes=nodes, seed=seed)
+    try:
+        r.init_all()
+        t0 = time.perf_counter()
+        stats = r.run_workload(n_ops=n_ops, n_keys=keys, pipeline=16,
+                               single_key=single_key)
+        dt = time.perf_counter() - t0
+        checked = r.check_strict_serializability(keys)  # raises on anomaly
+    finally:
+        r.close()
+    if not (checked > 0.9 * n_ops and stats["acked"] > 0.9 * n_ops):
+        raise AssertionError((checked, stats))
+    return {"metric": "maelstrom_host_txn_per_sec",
+            "value": round(stats["acked"] / dt, 1), "unit": "txn/s",
+            "workload": "lin-kv single-key" if single_key
+            else "txn-rw multi-key RMW",
+            "nodes": nodes, "keys": keys, "ops": stats["completed"],
+            "acked": stats["acked"], "wall_seconds": round(dt, 2),
+            "verified": "strict-serializable", "device": "host"}
+
+
 LANES = {"default": default_lane, "rangestress": rangestress_lane,
-         "tpcc": tpcc_lane, "tcp": tcp_lane,
+         "tpcc": tpcc_lane, "tcp": tcp_lane, "pipeline": pipeline_lane,
          **{name: functools.partial(slo_sim_lane, name)
             for name in SLO_SIM_LANES},
-         "slo-zipf1m": slo_zipf1m_lane, "slo-wan": slo_wan_lane}
+         "slo-zipf1m": slo_zipf1m_lane, "slo-wan": slo_wan_lane,
+         **{name: functools.partial(slo_tcp_lane, name)
+            for name in SLO_TCP_LANES},
+         "slo-reshard": slo_reshard_lane, "slo-overload": slo_overload_lane,
+         "multicore": multicore_lane,
+         "scalar": scalar_lane, "journal": journal_lane, "audit": audit_lane,
+         "maelstrom": maelstrom_lane,
+         "maelstrom-rw": functools.partial(maelstrom_lane, nodes=5, keys=20,
+                                           single_key=False)}
+# the lanes that touch no device: `--device` is not theirs
+HOST_LANES = ("scalar", "journal", "audit", "maelstrom", "maelstrom-rw")
 
 
 def main(argv: Optional[list] = None) -> int:
@@ -898,7 +1600,13 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     ns = ap.parse_args(argv)
-    print(json.dumps(LANES[ns.config](device=ns.device)))
+    lane = LANES[ns.config]
+    if ns.config in HOST_LANES:
+        if ns.device is not None:
+            ap.error(f"--config {ns.config} runs on the host: no --device")
+        print(json.dumps(lane()))
+    else:
+        print(json.dumps(lane(device=ns.device)))
     return 0
 
 

@@ -564,22 +564,75 @@ def native_tiers() -> dict:
             "wire": codec_tier()}
 
 
+# how much rarer a node process's full collections are than the
+# interpreter's default
+FULL_COLLECTIONS_RARER = 100
+
+
+def hold_off_full_collections() -> None:
+    """A node process's garbage collection once the node is built (and its
+    card warmed): every object made so far (modules, torch, the node's
+    structures) frozen out of all collections, and full (generation-2)
+    collections a hundred times rarer, while the young generations still
+    collect as before.  Under the overload lane on an H100's host each node
+    made 18-24 full collections of up to 469 ms (``node_probe.py``), and
+    those pauses were the high class's p99 at 5x."""
+    import gc
+    gc.freeze()
+    young, middle, full = gc.get_threshold()
+    gc.set_threshold(young, middle, full * FULL_COLLECTIONS_RARER)
+
+
+def process_evidence(node) -> dict:
+    """Where this process's command stores run, for a metrics reply: its
+    native tiers, its collector's frozen objects and thresholds, each
+    store's class, device and whether it left its device tier, and the
+    launches of the port's CUDA kernels in this process (none
+    on the CPU), those of the card's warm-up (``_warm_card``) included and
+    also given apart.  The launch counts are read only where the kernels'
+    module is loaded: a scalar host does not import torch for them."""
+    import gc
+    import sys
+    ck = sys.modules.get("accord_tpu_torch.ops.cuda_kernels")
+    return {"pid": os.getpid(), "native": native_tiers(),
+            "gc": {"frozen": gc.get_freeze_count(),
+                   "threshold": list(gc.get_threshold())},
+            "warm_launches": dict(WARM_LAUNCHES),
+            "stores": [{"type": type(s).__name__,
+                        "device": str(getattr(s, "device", "host")),
+                        "disabled": bool(getattr(s, "device_disabled",
+                                                 False))}
+                       for s in node.command_stores.all()],
+            "launches": ({k.name: k.launches for k in ck.KERNELS}
+                         if ck is not None else {})}
+
+
+# the kernel launches _warm_card made in this process: process_evidence
+# reports them apart from the node's
+WARM_LAUNCHES: Dict[str, int] = {}
+_WARMED: set = set()  # the devices warmed in this process
+
+
 def _warm_card(device) -> None:
     """Create the CUDA context, build and load the kernels a store's flush
-    launches (K1, K2) and initialise the matmul library (the in-window
-    graph) on `device`; nothing for a CPU device."""
-    import torch
-
+    launches (K1, K2), and run every step of a store's flush once
+    (``workload.warm_flush_path``), so that no torch kernel is first loaded
+    inside the node's loop; nothing for a CPU device."""
     from accord_tpu_torch.utils.backend import resolve_device
     dev = resolve_device(device)
-    if dev.type != "cuda":
+    if dev.type != "cuda" or str(dev) in _WARMED:
         return
+    _WARMED.add(str(dev))
     from accord_tpu_torch.ops import cuda_kernels as ck
+    from accord_tpu_torch.workload import warm_flush_path
     ck.build((ck.DEPS_TILE, ck.WAVEFRONT))
     for k in (ck.DEPS_TILE, ck.WAVEFRONT):
         k.lib()
-    ones = torch.ones((8, 8), dtype=torch.float32, device=dev)
-    (ones @ ones.T).sum().item()
+    before = {k.name: k.launches for k in ck.KERNELS}
+    warm_flush_path(dev)
+    for k in ck.KERNELS:
+        WARM_LAUNCHES[k.name] = (WARM_LAUNCHES.get(k.name, 0)
+                                 + k.launches - before[k.name])
 
 
 class TcpHost:
@@ -1068,9 +1121,18 @@ class TcpHost:
             # harness/client JSON snapshot fetch (bench.py records these
             # alongside its BENCH_HISTORY rows); client-endpoint src only
             if from_id <= 0:
+                snapshot = self.node.obs.snapshot()
+                snapshot["process"] = process_evidence(self.node)
+                sup = self.shard_supervisor
+                if sup is not None:
+                    # each worker's last stats frame (the supervisor polls
+                    # every 2 s): its stores live in its own process
+                    snapshot["workers"] = {
+                        str(shard): rsp.metrics
+                        for shard, rsp in sorted(sup.stats_cache.items())}
                 self.emit(from_id, {"type": "metrics_reply",
                                     "req": body.get("req"),
-                                    "snapshot": self.node.obs.snapshot()})
+                                    "snapshot": snapshot})
             return
         if kind == "flight":
             # live forensics view over the frame transport: the node's
@@ -1852,6 +1914,7 @@ def main() -> None:
     host = TcpHost(spec["id"], peers, rf=spec.get("rf"),
                    n_shards=spec.get("n_shards", 4),
                    topology_ids=spec.get("topology_ids"))
+    hold_off_full_collections()
     print(_json.dumps({"id": spec["id"],
                        "port": host.peers[spec["id"]][1],
                        "native": native_tiers()}), flush=True)

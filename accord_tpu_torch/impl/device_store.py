@@ -71,6 +71,20 @@ from accord_tpu_torch.primitives.keys import Key, Ranges
 from accord_tpu_torch.primitives.timestamp import KindSet, Timestamp, TxnId
 from accord_tpu_torch.utils.backend import resolve_device
 
+_INT32 = np.iinfo(np.int32)
+
+
+def _fits_int32(*arrays) -> bool:
+    return all(a.min() >= _INT32.min and a.max() <= _INT32.max
+               for a in arrays)
+
+
+def _bound_ranks(*arrays):
+    """`arrays` of int64 bounds as int32 ranks among all their values: the
+    same order, so every comparison between them is unchanged."""
+    values = np.unique(np.concatenate(arrays))
+    return tuple(np.searchsorted(values, a).astype(np.int32) for a in arrays)
+
 
 class _Probe:
     """One precomputed active-scan: deps per key at (before, kinds), plus the
@@ -804,7 +818,7 @@ class DeviceCommandStore(CommandStore):
         # the store's device and pays only for the query side
         cache = self._range_index_cache
         if cache is not None and cache[0] == self.range_version:
-            _, ids, intervals, dev_starts, dev_ends = cache
+            _, ids, intervals, bounds, dev_starts, dev_ends = cache
         else:
             ids = list(self.range_commands.keys())
             intervals = []
@@ -815,25 +829,38 @@ class DeviceCommandStore(CommandStore):
                 self._range_index_cache = None
                 return
             n_pad = _pad_to(len(intervals), 128)
-            starts = np.zeros(n_pad, np.int32)
-            ends = np.zeros(n_pad, np.int32)  # empty [0,0) pads never match
+            starts = np.zeros(n_pad, np.int64)
+            ends = np.zeros(n_pad, np.int64)  # empty [0,0) pads never match
             for i, (s, e, _idx) in enumerate(intervals):
                 starts[i], ends[i] = s, e
-            dev_starts = torch.from_numpy(starts).to(self.device)
-            dev_ends = torch.from_numpy(ends).to(self.device)
+            bounds = (starts, ends)
+            dev_starts = dev_ends = None
+            if _fits_int32(starts, ends):
+                dev_starts = torch.from_numpy(starts.astype(np.int32)).to(
+                    self.device)
+                dev_ends = torch.from_numpy(ends.astype(np.int32)).to(
+                    self.device)
             self._range_index_cache = (self.range_version, ids, intervals,
-                                       dev_starts, dev_ends)
+                                       bounds, dev_starts, dev_ends)
         if not intervals:
             return
         t = self.profiler.begin()
         all_spans = [sp for _, _, _, _, spans in probes for sp in spans]
         q_pad = _pad_to(len(all_spans), 128)
-        qs = np.zeros(q_pad, np.int32)
-        qe = np.zeros(q_pad, np.int32)
+        qs = np.zeros(q_pad, np.int64)
+        qe = np.zeros(q_pad, np.int64)
         for i, (s, e) in enumerate(all_spans):
             qs[i], qe[i] = s, e
-        dev_qs = torch.from_numpy(qs).to(self.device)
-        dev_qe = torch.from_numpy(qe).to(self.device)
+        if dev_starts is not None and _fits_int32(qs, qe):
+            dev_qs = torch.from_numpy(qs.astype(np.int32)).to(self.device)
+            dev_qe = torch.from_numpy(qe.astype(np.int32)).to(self.device)
+        else:
+            # a bound outside int32 (the real-socket host's token span ends
+            # at 2**31, one past it): the stab test only compares bounds,
+            # so every bound of the call goes as its rank among them all
+            dev_starts, dev_ends, dev_qs, dev_qe = (
+                torch.from_numpy(a).to(self.device)
+                for a in _bound_ranks(*bounds, qs, qe))
         t = self.profiler.lap(t, "range_encode", stage="encode")
         self._note_compile_shape(tuple(dev_starts.shape), (q_pad,),
                                  kernel="range")

@@ -141,10 +141,14 @@ class ShardStatsReq:
 class ShardStatsRsp:
     """One worker obs snapshot.  `census` is local/audit.census_node output
     (JSON-safe), `paging` the summed Pager.stats(), `flight` the ring tail
-    as (at_us, seq, kind, trace_id, data) tuples."""
+    as (at_us, seq, kind, trace_id, data) tuples, `metrics` the worker's
+    metrics registry snapshot and its process's device evidence
+    (host/tcp.process_evidence): its stores' device counters and kernel
+    laps reach the parent's metrics reply only this way."""
 
     def __init__(self, seq: int, shard: int, pid: int, generation: int,
-                 census=None, paging=None, flight: Tuple = ()):
+                 census=None, paging=None, flight: Tuple = (),
+                 metrics=None):
         self.seq = seq
         self.shard = shard
         self.pid = pid
@@ -152,6 +156,7 @@ class ShardStatsRsp:
         self.census = census
         self.paging = paging
         self.flight = tuple(tuple(e) for e in flight)
+        self.metrics = metrics
 
     def __repr__(self):
         return f"ShardStatsRsp(#{self.seq} shard={self.shard})"

@@ -191,6 +191,8 @@ class WorkerHost:
                   flush=True)
             return
         self._apply_init(init)
+        from accord_tpu_torch.host.tcp import hold_off_full_collections
+        hold_off_full_collections()
 
         def reader():
             while True:
@@ -286,6 +288,7 @@ class WorkerHost:
             self.out(frames.ShardReply(seq, None, repr(e)))
 
     def _on_stats(self, fr: "frames.ShardStatsReq") -> None:
+        from accord_tpu_torch.host.tcp import process_evidence
         from accord_tpu_torch.local.audit import census_node
         node = self.node
         census = census_node(node)
@@ -293,7 +296,10 @@ class WorkerHost:
         self.out(frames.ShardStatsRsp(
             fr.seq, self.shard, os.getpid(), self.generation,
             census=census, paging=paging,
-            flight=node.obs.flight.tail(fr.flight_tail)))
+            flight=node.obs.flight.tail(fr.flight_tail),
+            metrics={"node": node.id, "shard": self.shard,
+                     "metrics": node.obs.registry.snapshot(),
+                     "process": process_evidence(node)}))
 
     def _on_audit(self, fr: "frames.ShardAudit") -> None:
         from accord_tpu_torch.local import audit as A

@@ -355,6 +355,7 @@ def run_open_loop_tcp(profile: str = "zipfian", ops: int = 300,
 
     client = TcpClusterClient(n_nodes=nodes, n_shards=n_shards)
     summary = None
+    snaps = []
     try:
         t0_us = int(time.time() * 1e6)
         records = [OpRecord(i, t0_us + off) for i, off in enumerate(offsets)]
@@ -408,10 +409,12 @@ def run_open_loop_tcp(profile: str = "zipfian", ops: int = 300,
 
     sched = {"kind": schedule, "rate_per_s": rate_per_s, "ops": ops,
              "seed": seed, "host": "tcp"}
-    return OpenLoopResult(records,
-                          _collect(records, rate_per_s, sched, summary,
-                                   t0_us),
-                          summary, sched)
+    result = OpenLoopResult(records,
+                            _collect(records, rate_per_s, sched, summary,
+                                     t0_us),
+                            summary, sched)
+    result.snapshots = snaps  # every node's own, not only the merged one
+    return result
 
 
 # -------------------------------------------------------- overload lane ----
@@ -599,6 +602,7 @@ def run_overload_tcp(profile: str = "uniform", schedule: str = "poisson",
     all_records: List[OverloadRec] = []
     windows: List[dict] = []
     summary = None
+    snaps = []
     t0_us = now_us()
     try:
         probe = _probe_capacity(client, prof, origin_rng, nodes,
@@ -820,7 +824,9 @@ def run_overload_tcp(profile: str = "uniform", schedule: str = "poisson",
         "accounting": counts,
         "server_qos": (summary or {}).get("qos"),
     }
-    return OpenLoopResult(all_records, report, summary, sched)
+    result = OpenLoopResult(all_records, report, summary, sched)
+    result.snapshots = snaps
+    return result
 
 
 # --------------------------------------------------------- reshard lane ----
@@ -1012,6 +1018,14 @@ def run_reshard_tcp(profile: str = "zipfian", ops: int = 2400,
                                         "timeout_s": 45.0})
                 body = admin_wait(req, 60.0)
                 mark("drain_ok" if body.get("durable") else "drain_undurable")
+                # the retiring node's own metrics, while it still answers
+                req = f"rs-metrics-{retiring}"
+                client._send(retiring, {"type": "metrics", "req": req})
+                try:
+                    retired_snaps.append(
+                        admin_wait(req, 10.0).get("snapshot"))
+                except TimeoutError:
+                    retired_snaps.append(None)
                 client.kill_node(retiring)
                 mark("retired")
             mark("reshard_end")
@@ -1020,6 +1034,8 @@ def run_reshard_tcp(profile: str = "zipfian", ops: int = 2400,
             mark("reshard_failed")
 
     summary = None
+    snaps = []
+    retired_snaps: List[Optional[dict]] = []
     audit_views = {}
     lost: List[tuple] = []
     acked_appends = 0
@@ -1032,7 +1048,8 @@ def run_reshard_tcp(profile: str = "zipfian", ops: int = 2400,
             body = frame.get("body", {})
             typ = body.get("type")
             if typ != "submit_reply":
-                if typ in ("epoch_ok", "topology_reply", "drain_ok"):
+                if typ in ("epoch_ok", "topology_reply", "drain_ok",
+                           "metrics_reply"):
                     admin_replies[body.get("req")] = body
                 return False
             req = body.get("req")
@@ -1168,4 +1185,6 @@ def run_reshard_tcp(profile: str = "zipfian", ops: int = 2400,
     reshard["joined_node"] = nodes + 1
     reshard["retired_node"] = retiring if drain_retiring else None
     report["reshard"] = reshard
-    return OpenLoopResult(records, report, summary, sched)
+    result = OpenLoopResult(records, report, summary, sched)
+    result.snapshots = retired_snaps + snaps
+    return result

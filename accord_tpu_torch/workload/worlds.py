@@ -1002,6 +1002,42 @@ def open_loop_fingerprint(run, node_paging_stats) -> dict:
     }
 
 
+# the plan that warms a store's flush path: every op kind of store_plan
+WARM_MIX = (("preaccept", 0.40), ("accept", 0.05), ("commit", 0.15),
+            ("apply", 0.15), ("recover", 0.05), ("range", 0.20))
+
+
+def warm_flush_path(device) -> None:
+    """Run every step of a ``DeviceCommandStore``'s flush on `device` once,
+    so that a store serving after it finds each kernel loaded.  CUDA loads
+    a kernel's module at its first launch, and a node process's first deps
+    flush then held its loop 0.5-1 s on an H100 (``node_probe.py``): far
+    past the 1 s RPC timeout of its peers.  A seeded plan
+    of every op kind (``store_plan``: preaccepts, accepts, commits, applies,
+    recovery probes, range txns) runs through a DeviceCommandStore, then a
+    window of 5,760 entries through ``resolve_step`` (torch's sort takes
+    other kernels above 4,096 elements).  The launches count as the
+    kernels' launches."""
+    from accord_tpu_torch.impl.device_store import DeviceCommandStore
+    from accord_tpu_torch.ops.encode import BatchEncoder, window_to_tensors
+    from accord_tpu_torch.ops.sharded import resolve_step
+
+    node = StoreNode()
+    store = DeviceCommandStore.factory(device=device)(
+        0, node, node.kit.Ranges.of((0, 1 << 20)))
+    plan = store_plan(0, n_keys=16, n_txns=160, window=(8, 64),
+                      mix=WARM_MIX)
+    runner = StorePlanRunner(store, node, plan)
+    for ops in plan[1]:
+        runner.run_window(ops)
+    cfks, batch = build_world(n_keys=64, n_existing=3000, n_batch=64,
+                              seed=1)
+    enc = BatchEncoder(cfks, batch)
+    for out in resolve_step(*window_to_tensors(enc.state, enc.dbatch,
+                                               store.device)):
+        out.cpu()
+
+
 def tcp_cluster_txns(n_txns: int = 20, tokens=(10, 11, 12)) -> dict:
     """Three ``host.tcp.TcpHost`` nodes in this process on real localhost
     sockets (``tests/test_tcp_host.py``'s in-process cluster; the

@@ -2,8 +2,10 @@
 """Proof on one H100 that the port builds and resolves a full flush window,
 the full TPC-C new-order replay, a recovery window and the rangestress lane
 through its hand-written CUDA kernels, serves the protocol store's flush
-windows through them, runs the reference's flagship burn through them, and
-serves a three-node real-socket cluster with its device stores on the card.
+windows through them, runs the reference's flagship burn through them,
+serves a three-node real-socket cluster with its device stores on the card,
+and runs the bench lanes over node processes and shard workers with every
+store on the card.
 
     python3 chip_smoke.py          (from the repository root, on a CUDA card)
 
@@ -103,8 +105,9 @@ Phases; any failure raises, exits non-zero and prints no result lines:
     bound and a memset of its [S, B, E] output, the deps step's ms, and
     the padding factor S*E_shard / E.
 13. the protocol store tier (bench.StoreBench): the default cell's shape,
-    1024 keys at Zipf(0.99), as a store history of 16,384 txns
-    (workload.default_store_plan: flush windows of 512 preaccepts, with
+    1024 keys at Zipf(0.99), as a store history of 4,096 txns (16,384
+    before phase 17 needed the time; workload.default_store_plan: flush
+    windows of 512 preaccepts, with
     every txn accepted one window later in one case of 8, committed stable
     and applied two windows later) through store.execute and the local state
     machine's transitions, into a flat DeviceCommandStore and a
@@ -190,6 +193,27 @@ Phases; any failure raises, exits non-zero and prints no result lines:
     each line == the JAX package's, K1 == the deps flushes (stacked K1 for
     the mesh store), K2 == wave_batches, K4 and K5 not launched.  It prints
     each run's wall seconds, launches and laps, and (a)'s paging stats.
+17. the bench lanes over node processes and shard workers, each through
+    its own process (python -m accord_tpu_torch.bench --config X, with
+    ACCORD_PROFILE=1), every command store a DeviceCommandStore on the
+    card: pipeline (the tcp lane with the ingest pipeline, client 64
+    deep), slo-tcp, ephemeral and slo-journal (open-loop over three node
+    processes, the pipeline on; slo-journal with the WAL), slo-reshard (a
+    node joins under load, node 1 drains and retires), slo-overload (0.5x
+    to 10x of 120 txn/s, QoS armed) and multicore (one node, its stores in
+    1, 2 and 4 shard workers; the JAX lane's keys all lie in worker 0's
+    slice, so the others must show no flush), then multicore at 4 workers
+    with the keys spread over the span.  Each lane keeps its JAX verdicts
+    (it raises otherwise), no process reports a traceback or an exception
+    on stderr, and every node process or shard worker (its row read from
+    its metrics, a worker's from its stats frame) has DeviceCommandStores
+    on cuda, none off its device tier, deps_kernel laps > 0 that with its
+    recovery laps make its device_batches, K1's launches in the process ==
+    its deps laps and K2's == its wave batches, K4 and K5 none.  It prints
+    each lane's acked txns a wall second, p50 and p99 (the client's ack
+    latency for pipeline, open-loop from the intended start for the rest)
+    and wall seconds, and each process's launches, widest flush window,
+    widest K1 batch and summed laps.
 The tolerance everywhere is exact equality: every output is integer or bool.
 
 Then, on lines of their own: the card's name and power limit (nvidia-smi),
@@ -197,6 +221,7 @@ the kernels JSON object, and last {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -226,8 +251,9 @@ TPCC_IN_WINDOW = 1_616_220
 TPCC_MAX_WAVE = 13
 # bench.bench_default()'s world: the scalar scan's edge count
 DEFAULT_EDGES = 1_152_177
-# phase 13's store history (txns)
-STORE_HISTORY = 16_384
+# phase 13's store history (txns), cut from 16,384 so that phase 17 fits
+# in the script's time
+STORE_HISTORY = 4_096
 
 
 def log(msg: str) -> None:
@@ -293,6 +319,7 @@ def real_socket_host(card: str, device=None):
     lane's three node processes at its defaults.  `device` None is the card;
     "cpu" rehearses the phase without one."""
     from accord_tpu_torch import bench
+    from accord_tpu_torch.host import tcp
     from accord_tpu_torch.host.tcp import native_tiers
     from accord_tpu_torch.impl.device_store import DeviceCommandStore
     from accord_tpu_torch.ops import cuda_kernels as ck
@@ -311,11 +338,15 @@ def real_socket_host(card: str, device=None):
     agent_err = io.StringIO()
     try:
         ck.reset_launch_counts()
+        warmed = dict(tcp.WARM_LAUNCHES)
         with contextlib.redirect_stderr(agent_err):
             cl = tcp_cluster_txns()
         if on_card:
             torch.cuda.synchronize()
-        tcp_launches = {k.name: k.launches for k in ck.KERNELS}
+        # the hosts' own launches: the card's warm-up's (once a process,
+        # done here already by an earlier phase) taken out
+        tcp_launches = {k.name: k.launches - tcp.WARM_LAUNCHES.get(k.name, 0)
+                        + warmed.get(k.name, 0) for k in ck.KERNELS}
     finally:
         for k, v in saved.items():
             if v is None:
@@ -506,10 +537,156 @@ def paged_store_on_card(card: str, tier: str, device=None):
     return result
 
 
+# phase 17's lanes, in the order they run: (name, the bench's --config, or
+# for the multicore lane with its keys spread over the span the call's
+# arguments)
+NODE_PROCESS_LANES = ("pipeline", "slo-tcp", "ephemeral", "slo-journal",
+                      "slo-reshard", "slo-overload", "multicore",
+                      "multicore-spread")
+
+
+@contextlib.contextmanager
+def _stderr_into(path: str):
+    """File descriptor 2 of this process, and so of every process it
+    starts, into `path` for the block."""
+    sys.stderr.flush()
+    saved = os.dup(2)
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o600)
+    os.dup2(fd, 2)
+    os.close(fd)
+    try:
+        yield
+    finally:
+        sys.stderr.flush()
+        os.dup2(saved, 2)
+        os.close(saved)
+
+
+def _run_lane(name: str, device=None) -> tuple:
+    """One phase-17 lane, the profiler sampling every flush window in its
+    node processes (ACCORD_PROFILE=1) -> (its JSON object, wall seconds
+    with the processes' start).  Fails on a traceback or an exception that
+    the lane, a node process or a node's agent reported on stderr."""
+    import tempfile
+    from accord_tpu_torch import bench
+    from accord_tpu_torch.host.maelstrom import TOKEN_SPAN
+
+    if name == "multicore-spread":
+        lane = functools.partial(bench.multicore_lane, shards_list=(4,),
+                                 key_stride=TOKEN_SPAN // 50)
+    else:
+        lane = bench.LANES[name]
+    fd, err_path = tempfile.mkstemp(prefix="lane-", suffix=".err")
+    os.close(fd)
+    saved = os.environ.get("ACCORD_PROFILE")
+    os.environ["ACCORD_PROFILE"] = "1"
+    t0 = time.perf_counter()
+    try:
+        with _stderr_into(err_path):
+            line = lane(device=device)
+        wall = time.perf_counter() - t0
+        with open(err_path) as f:
+            err = f.read()
+    finally:
+        os.unlink(err_path)
+        if saved is None:
+            del os.environ["ACCORD_PROFILE"]
+        else:
+            os.environ["ACCORD_PROFILE"] = saved
+    bad = [b for b in ("Traceback", "uncaught:", "handled:") if b in err]
+    check(not bad, f"{name} lane: {bad} on stderr:\n{err[-4000:]}")
+    return line, wall
+
+
+def node_process_lanes(card: str, device=None,
+                       names=NODE_PROCESS_LANES) -> dict:
+    """Phase 17: the bench lanes over node processes and shard workers
+    (`names`, by default all of them), every command store a
+    DeviceCommandStore on the card.  `device` None is the card; "cpu"
+    rehearses the phase without one.  -> {lane: K1 launches summed over its
+    processes}"""
+    from accord_tpu_torch import bench
+    from accord_tpu_torch.host.maelstrom import TOKEN_SPAN
+
+    where = "cpu" if device is not None else "cuda"
+    k1 = {}
+    for name in names:
+        line, wall = _run_lane(name, device)
+        check(line["device"] == where, f"{name}: {line['device']}")
+        if name.startswith("multicore"):
+            counts = [int(n) for n in line["per_shards"]]
+            check(counts == ([4] if name == "multicore-spread"
+                             else [1, 2, 4]), f"{name}: {counts}")
+            rows = []
+            for n in counts:
+                row = line["per_shards"][str(n)]
+                owning = row["workers_with_keys"]
+                want = ([0, 1, 2, 3] if name == "multicore-spread"
+                        else [0])
+                check(owning == want, f"{name} at {n}: {owning}")
+                check(row["acked"] > 180, f"{name} at {n}: {row['acked']}")
+                bench.check_per_node(
+                    row["per_node"], where, workers=n if n >= 2 else 0,
+                    idle=set(range(n)) - set(owning) if n >= 2 else ())
+                rows += row["per_node"]
+            rates = "; ".join(
+                f"{n} {'worker' if n > 1 else 'in-loop'}"
+                f"{'s' if n > 1 else ''}: "
+                + (f"{line['per_shards'][str(n)]['aggregate_txn_per_s']:.3f}"
+                   f" acked txns a wall second, "
+                   f"{line['per_shards'][str(n)]['wall_seconds']:.3f} s"
+                   if where == "cuda" else "no rate on the CPU")
+                for n in counts)
+        else:
+            rows = line["per_node"]
+            bench.check_per_node(rows, where)
+            check(sorted(r["node"] for r in rows)
+                  == ([1, 2, 3, 4] if name == "slo-reshard" else [1, 2, 3]),
+                  f"{name}: nodes {[r['node'] for r in rows]}")
+            if name == "pipeline":
+                check(line["verified"] == "strict-serializable"
+                      and line["acked"] > 360, f"pipeline: {line['acked']}")
+                p50, p99 = line["ack_p50_ms"], line["ack_p99_ms"]
+            else:
+                p50, p99 = line["open_p50_ms"], line["open_p99_ms"]
+            rates = (f"{line['value']:.3f} "
+                     + ("peak goodput txns a wall second"
+                        if name == "slo-overload" else
+                        "acked txns a wall second")
+                     + f", p50 {p50:.3f} ms, p99 {p99:.3f} ms, "
+                     f"{line['wall_seconds']:.3f} s of traffic"
+                     if where == "cuda" else "no rate on the CPU")
+        k1[name] = sum(r["launches"]["deps_tile"] for r in rows)
+        extra = {k: line[k] for k in (
+            "acked", "ops", "shed", "widest_flush_window_txns",
+            "widest_k1_batch", "lost_acks", "availability_dip_pct",
+            "goodput_at_5x_frac_of_peak", "high_p99_at_5x_us",
+            "high_p99_uncontended_us", "verdicts", "cpus_available",
+            "scaling_first_to_last") if k in line}
+        log(f"[lanes] {card}: {name}, {rates}; {wall:.1f} s with the "
+            f"processes' start; {extra}; K1 launches {k1[name]} == deps "
+            f"flushes, K2 launches "
+            f"{sum(r['launches']['wavefront'] for r in rows)}; per process "
+            + "; ".join(
+                f"node {r['node']}"
+                + ("" if r["shard"] is None else f" shard {r['shard']}")
+                + f" {r['stores'][0]['device']} launches "
+                f"{ {k: v for k, v in r['launches'].items() if v} } "
+                f"window_txn_max {r['device']['device_window_txn_max']} "
+                f"max_batch {r['device']['device_max_batch']} lap ms "
+                + ", ".join(f"{k} {v:.1f}"
+                            for k, v in sorted(r["lap_ms"].items())
+                            if k in ("deps_kernel", "wavefront_kernel",
+                                     "deps_encode", "deps_decode"))
+                for r in rows))
+    return k1
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    t_script = time.perf_counter()
     # ---- 1. build: the native C++ tier first (importing the package builds
     # it), then the CUDA kernels
     native_s = build_native()
@@ -558,6 +735,7 @@ def main() -> int:
                 log(f"[build] {k.name}: {line.strip()}")
         k.lib()
 
+    log(f"[phase] 2 starts at {time.perf_counter() - t_script:.1f} s")
     # ---- 2. K1 == plain
     def deps_vs_plain(label, args):
         m_k, c_k = ck.deps_tile_cuda(*args)
@@ -595,6 +773,7 @@ def main() -> int:
                               seed=11)
     deps_case("K=16500 world", cfks, batch, ragged=True)
 
+    log(f"[phase] 3 starts at {time.perf_counter() - t_script:.1f} s")
     # ---- 3. K2 == plain == oracle, and the path it takes
     def waves_run(label, dep, rank, want_forward):
         stats = torch.zeros(3, dtype=torch.int32, device=dev)
@@ -658,6 +837,7 @@ def main() -> int:
     log(f"[K2] random DAG with a cycle: B=512, {on_cycle} rows on or behind "
         f"the cycle keep -1 == plain; {how_c}")
 
+    log(f"[phase] 4 starts at {time.perf_counter() - t_script:.1f} s")
     # ---- 4. the main path at full size
     fn, small_args = entry()
     small_out = fn(*small_args)
@@ -700,6 +880,7 @@ def main() -> int:
         f"in-window edges {int(dep_bb.sum())}; max wave {max_wave}; "
         f"launches {launches}; K2 with the window's ranks: {how}")
 
+    log(f"[phase] 5 starts at {time.perf_counter() - t_script:.1f} s")
     # ---- 5. timing at the main path's shapes
     er, eer, ek, es, ekd, tr, twm, tk, touches = args
     succ = deps_kernel.successor_write_eat(er, eer, ek, es, ekd)
@@ -795,6 +976,7 @@ def main() -> int:
         f"ms by bytes (succ_w {succ_bytes}, K1 {k1_bytes}, graph "
         f"{graph_bytes}, K2 {k2_bytes} bytes)")
 
+    log(f"[phase] 6 starts at {time.perf_counter() - t_script:.1f} s")
     # ---- 6. K4 == plain == oracle
     def keyset_vs_plain(label, tk, tr):
         got = ck.keyset_windows_cuda(tk, tr)
@@ -847,6 +1029,7 @@ def main() -> int:
     keyset_case("hot key in all 2048 rows", tk,
                 rng.permutation(2048).astype(np.int32)[None])
 
+    log(f"[phase] 7 starts at {time.perf_counter() - t_script:.1f} s")
     # ---- 7. the TPC-C replay at full size
     lane = tpcc.prepare(device=dev)
     log(f"[tpcc] host preparation {lane.prep_seconds:.2f}s: "
@@ -878,6 +1061,7 @@ def main() -> int:
     log(f"[tpcc] {counts}; launches {lane_launches}; K4 == plain on every "
         f"bucket; window_oracle == K4 on windows 0, 244, 488")
 
+    log(f"[phase] 8 starts at {time.perf_counter() - t_script:.1f} s")
     # ---- 8. timing of the lane
     def k4_pass():
         for _, ranks, keyss in lane.stacks:
@@ -974,6 +1158,7 @@ def main() -> int:
         f"{k4_4k_ms:.4f} ms; == plain on every window, window_oracle on "
         f"windows 0, {n4k // 2}, {n4k - 1}")
 
+    log(f"[phase] 9 starts at {time.perf_counter() - t_script:.1f} s")
     # ---- 9. the recovery window
     t0 = time.perf_counter()
     rec_cfks, rec_probes = recovery_world()
@@ -1007,6 +1192,7 @@ def main() -> int:
         f"{len(rec_probes)} probes; batched_recovery_scans {rec_ms:.4f} ms "
         f"(plain torch on the card)")
 
+    log(f"[phase] 10 starts at {time.perf_counter() - t_script:.1f} s")
     # ---- 10. K5 == plain
     def range_vs_plain(label, s, e, qs, qe):
         got = ck.range_stab_counts_cuda(s, e, qs, qe)
@@ -1023,6 +1209,7 @@ def main() -> int:
         log(f"[K5] {label}: N={arrays[0].shape[0]} Q={arrays[2].shape[0]} "
             f"total {int(got.sum(dtype=torch.int64))} == plain")
 
+    log(f"[phase] 11 starts at {time.perf_counter() - t_script:.1f} s")
     # ---- 11. the rangestress lane at full size
     rs_inputs = rangestress_inputs()
     starts, ends, q_starts, q_ends, _sample = rs_inputs
@@ -1139,6 +1326,7 @@ def main() -> int:
             f"== both plain versions; {ms:.4f} ms; apart: "
             + ", ".join(f"{k} {v:.4f} ms" for k, v in apart.items()))
 
+    log(f"[phase] 12 starts at {time.perf_counter() - t_script:.1f} s")
     # ---- 12. the sharded step on the build_world window
     cfks, batch = world
     n = len(batch)
@@ -1260,6 +1448,7 @@ def main() -> int:
         + f"; a memset of the [S, B, E_shard] mask {k1s_memset_ms:.4f} ms; "
         f"flat K1 {k1_ms:.4f} ms; padding factor {pad_factor:.4f}")
 
+    log(f"[phase] 13 starts at {time.perf_counter() - t_script:.1f} s")
     # ---- 13. the protocol store tier
     card = card_name_and_power_limit()
     from accord_tpu_torch.host.tcp import native_tiers
@@ -1408,6 +1597,7 @@ def main() -> int:
         check(not r.store.device_disabled and not r.node.agent.failures,
               "a store failed or disabled its device tier")
 
+    log(f"[phase] 14 starts at {time.perf_counter() - t_script:.1f} s")
     # ---- 14. the protocol on the card: the protocol cells' burns through
     # the port's burn CLI, the profiler sampling every flush window
     def burn_on_card(name):
@@ -1512,9 +1702,11 @@ def main() -> int:
                              ("mesh", "sharded_kernel", 1)):
         flushes_reach_k1(name, *burn_on_card(name), lap, waves)
 
+    log(f"[phase] 15 starts at {time.perf_counter() - t_script:.1f} s")
     # ---- 15. the real-socket host on the card
     real_socket_host(card)
 
+    log(f"[phase] 16 starts at {time.perf_counter() - t_script:.1f} s")
     # ---- 16. the bounded-memory store and the burn's remaining arms
     paged_store_on_card(card, tier)
 
@@ -1532,6 +1724,10 @@ def main() -> int:
             check(summed["replayed_max_batch"] >= 45
                   and summed["replayed_wave_batches"] == 1,
                   f"restart arm's replayed windows {summed}")
+
+    log(f"[phase] 17 starts at {time.perf_counter() - t_script:.1f} s")
+    # ---- 17. the lanes over node processes and shard workers
+    node_process_lanes(card)
 
     kernels = [
         {"name": "deps_tile", "route": "cuda",
@@ -1561,6 +1757,7 @@ def main() -> int:
          "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound,
          "bound_by": k5_by, "library_ms": None},
     ]
+    log(f"[phase] all done at {time.perf_counter() - t_script:.1f} s")
     print(card_name_and_power_limit())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -28,7 +28,12 @@ DEVIATIONS = {
     "ops/wavefront.py": "the wavefront in torch, K2's plain version",
     "utils/backend.py": "device selection: the card, or the CPU if asked",
     "impl/device_store.py": "flush windows resolved by the port's kernels; "
-                            "device= raises without a card; no mesh attribute",
+                            "device= raises without a card; no mesh "
+                            "attribute; a range bound outside int32 (the "
+                            "real-socket host's span ends at 2**31) sends "
+                            "every bound of the stab as its rank, where the "
+                            "reference's int32 encoding overflows and the "
+                            "store leaves its device tier",
     "obs/profiler.py": "laps fenced by a host copy; counts shapes, not "
                        "XLA compiles",
     # the burn's CLI: where the device stores run
@@ -47,7 +52,12 @@ DEVIATIONS = {
                             "reaches both; docstring: change-history tags "
                             "dropped",
     "workload/openloop.py": "run_wan_sim takes store_factory, so the WAN "
-                            "lane runs on the device stores; docstring: a "
+                            "lane runs on the device stores; the three TCP "
+                            "runners keep every node's metrics snapshot on "
+                            "the result (.snapshots; the reshard runner "
+                            "takes the retiring node's just before it is "
+                            "killed), so a lane shows each node process's "
+                            "device counters and kernel laps; docstring: a "
                             "change-history tag dropped",
     # the real-socket host: the device stores on the card or the CPU
     "host/tcp.py": "_env_store_factory builds the port's DeviceCommandStore "
@@ -58,7 +68,25 @@ DEVIATIONS = {
                    "compile cache; a node's ready line carries its "
                    "native_tiers() and TcpClusterClient keeps the lines "
                    "(.ready), so a client sees every node's native tier; "
+                   "a metrics reply carries process_evidence() (native "
+                   "tiers, the collector's state, each store's class and "
+                   "device, the process's kernel launches) and, under the "
+                   "shard workers, each worker's last stats-frame metrics; "
+                   "_warm_card runs every flush step once "
+                   "(workload.warm_flush_path: CUDA loads a kernel's module "
+                   "at its first launch, which held a node's loop 0.5-1 s) "
+                   "and keeps its launches apart; a node process freezes "
+                   "its heap and makes full collections 100x rarer once "
+                   "built (hold_off_full_collections: pauses of up to 469 ms "
+                   "were the overload lane's high-class p99); "
                    "comments: change-history tags dropped",
+    # the shard workers: their device stores' counters, laps and launches
+    # reach the node's metrics reply
+    "shard/frames.py": "ShardStatsRsp carries the worker's metrics",
+    "shard/worker.py": "the stats frame carries the worker's registry "
+                       "snapshot and process_evidence(); the worker holds "
+                       "off full collections once built, as a node "
+                       "process does",
     # comments that cite the reference's change history by number say
     # what they mean instead
     "host/maelstrom.py": "a comment: a change-history tag dropped",

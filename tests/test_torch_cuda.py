@@ -438,6 +438,7 @@ def test_tcp_cluster_with_device_stores_on_card(card, monkeypatch):
     device-served, and K1 launches once a deps flush (the profiler's
     deps_kernel laps) and K2 once a wave batch."""
     from accord_tpu_torch.bench import summed_profile_laps
+    from accord_tpu_torch.host import tcp
     from accord_tpu_torch.workload import tcp_cluster_txns
 
     for k, v in (("ACCORD_TCP_DEVICE_STORE", "1"),
@@ -447,8 +448,12 @@ def test_tcp_cluster_with_device_stores_on_card(card, monkeypatch):
     monkeypatch.delenv("ACCORD_TCP_DEVICE", raising=False)
     monkeypatch.delenv("ACCORD_SHARDS", raising=False)
     before = {k.name: k.launches for k in cuda_kernels.KERNELS}
+    warmed = dict(tcp.WARM_LAUNCHES)
     out = tcp_cluster_txns()
+    # the nodes' own launches: the card's warm-up (once a process, counted
+    # in tcp.WARM_LAUNCHES) taken out
     launched = {k.name: k.launches - before[k.name]
+                - tcp.WARM_LAUNCHES.get(k.name, 0) + warmed.get(k.name, 0)
                 for k in cuda_kernels.KERNELS}
     stores = out["stores"]
     assert all(s.device.type == "cuda" and not s.device_disabled
