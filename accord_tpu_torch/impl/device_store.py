@@ -503,13 +503,14 @@ class DeviceCommandStore(CommandStore):
 
     def __init__(self, store_id: int, node, ranges, *,
                  flush_window_us: int = 0, verify: bool = False,
-                 device=None):
+                 plan_waves: bool = True, device=None):
         super().__init__(store_id, node, ranges)
         # where the window's tensors live: None means the CUDA card, and
         # raises without one (utils/backend.resolve_device)
         self.device = resolve_device(device)
         self.flush_window_us = flush_window_us
         self.verify = verify
+        self.plan_waves = plan_waves  # A/B toggle (measure_device.py)
         self._window: List[Tuple[PreLoadContext, object, object]] = []
         self._flush_scheduled = False
         # >0 while a batch envelope (messages/multi.MultiPreAccept) is
@@ -554,10 +555,11 @@ class DeviceCommandStore(CommandStore):
 
     @classmethod
     def factory(cls, flush_window_us: int = 0, verify: bool = False,
-                device=None):
+                plan_waves: bool = True, device=None):
         return lambda i, node, ranges: cls(i, node, ranges,
                                            flush_window_us=flush_window_us,
                                            verify=verify,
+                                           plan_waves=plan_waves,
                                            device=device)
 
     def _make_safe(self, context: PreLoadContext) -> SafeCommandStore:
@@ -632,7 +634,8 @@ class DeviceCommandStore(CommandStore):
                 self._precompute(window)
                 self._precompute_recovery(window)
                 self._precompute_ranges(window)
-                plan = self._plan_waves(window)
+                if self.plan_waves:
+                    plan = self._plan_waves(window)
             except Exception as exc:  # noqa: BLE001 — mid-run backend death
                 if self.verify:
                     # equivalence-certification mode must not silently

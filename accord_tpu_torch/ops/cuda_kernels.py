@@ -29,8 +29,10 @@ count where it launches, and nowhere else.
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -175,6 +177,17 @@ def build(kernels: Iterable[Kernel] = KERNELS,
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+
+
+def _write_launch_counts(path: str) -> None:
+    Path(path).write_text(json.dumps({k.name: k.launches for k in KERNELS}))
+
+
+# ACCORD_LAUNCH_COUNTS=FILE: the process writes every kernel's launches to
+# FILE as JSON when it exits (the soak reads a burn subprocess's this way)
+if os.environ.get("ACCORD_LAUNCH_COUNTS"):
+    atexit.register(_write_launch_counts,
+                    os.environ["ACCORD_LAUNCH_COUNTS"])
 
 
 def _cuda_device(tensors) -> Optional[torch.device]:

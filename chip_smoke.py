@@ -214,6 +214,16 @@ Phases; any failure raises, exits non-zero and prints no result lines:
     latency for pipeline, open-loop from the intended start for the rest)
     and wall seconds, and each process's launches, widest flush window,
     widest K1 batch and summed laps.
+18. two seeds of the hostile-seed soak (accord_tpu_torch/soak.py) through
+    the burn CLI as in phase 14, their arguments and the JAX package's
+    lines from the soak's expected-lines file (soak_lines.json): seed 57012
+    of device-loss25-rangeheavy-part (the reference's worst-class fault of
+    its first soak wave) and seed 58000 of
+    mesh-loss25-part-drift-8stores-contended (8 mesh stores a node, each
+    deps flush one stacked K1 launch).  Each line == the JAX package's, no
+    store left its device tier, no agent failure, K1 == the deps flushes,
+    K2 == wave_batches, K4 and K5 not launched; it prints each run's wall
+    seconds, launches and laps, and the phase's seconds.
 The tolerance everywhere is exact equality: every output is integer or bool.
 
 Then, on lines of their own: the card's name and power limit (nvidia-smi),
@@ -254,6 +264,13 @@ DEFAULT_EDGES = 1_152_177
 # phase 13's store history (txns), cut from 16,384 so that phase 17 fits
 # in the script's time
 STORE_HISTORY = 4_096
+# phase 18's soak seeds: (arm, seed, the kernel lap of its deps flushes).
+# 57012 is the range-heavy 25%-loss seed that failed the reference's first
+# soak wave (SOAK_NOTES.md:164-198); 58000 runs the 8-store contended mesh
+# arm through the stacked K1
+SOAK_SEEDS = (("device-loss25-rangeheavy-part", 57012, "deps_kernel"),
+              ("mesh-loss25-part-drift-8stores-contended", 58000,
+               "sharded_kernel"))
 
 
 def log(msg: str) -> None:
@@ -713,6 +730,8 @@ def main() -> int:
     from accord_tpu_torch.utils.timing import median_ms
     from accord_tpu_torch.obs.registry import parse_labels
     from accord_tpu_torch.sim import burn
+    from accord_tpu_torch.soak import EXPECTED_LINES as SOAK_LINES
+    from accord_tpu_torch.soak import load_expected
     from accord_tpu_torch.workload import (PROTOCOL_BURNS, build_world,
                                            device_counters,
                                            first_touch_preaccepts,
@@ -1600,8 +1619,10 @@ def main() -> int:
     log(f"[phase] 14 starts at {time.perf_counter() - t_script:.1f} s")
     # ---- 14. the protocol on the card: the protocol cells' burns through
     # the port's burn CLI, the profiler sampling every flush window
-    def burn_on_card(name):
-        argv, want = PROTOCOL_BURNS[name]
+    def burn_on_card(name, spec=None):
+        """`spec`: (the burn's arguments, the JAX package's line), by
+        default the protocol cell `name`'s."""
+        argv, want = spec or PROTOCOL_BURNS[name]
         runs = []
 
         class Recorded(burn.BurnRun):
@@ -1728,6 +1749,21 @@ def main() -> int:
     log(f"[phase] 17 starts at {time.perf_counter() - t_script:.1f} s")
     # ---- 17. the lanes over node processes and shard workers
     node_process_lanes(card)
+
+    t18 = time.perf_counter()
+    log(f"[phase] 18 starts at {t18 - t_script:.1f} s")
+    # ---- 18. two seeds of the hostile-seed soak, their arguments and the
+    # JAX package's lines from the soak's expected-lines file
+    soak_lines = load_expected(SOAK_LINES)
+    for arm, seed, lap in SOAK_SEEDS:
+        entry_ = soak_lines[(arm, seed)]
+        launched, laps, summed = burn_on_card(
+            f"{arm} seed {seed}", (entry_["args"], entry_["line"]))
+        waves = int(entry_["line"].split(" wave_batches=")[1].split()[0])
+        flushes_reach_k1(f"{arm} seed {seed}", launched, laps, summed, lap,
+                         waves)
+    log(f"[soak] {card}, {tier}: phase 18 took "
+        f"{time.perf_counter() - t18:.1f} s")
 
     kernels = [
         {"name": "deps_tile", "route": "cuda",

@@ -28,7 +28,10 @@ from accord_tpu_torch.workload import (build_world, keyset_cases,
                                        range_cases, range_index_cases,
                                        recovery_world)
 
-pytestmark = pytest.mark.cuda
+# slow too: these skip wherever there is no card, so they stay out of the
+# tier-1 run's budget of unmarked tests; on the card the file runs with no
+# -m filter
+pytestmark = [pytest.mark.cuda, pytest.mark.slow]
 
 
 @pytest.fixture

@@ -216,7 +216,10 @@ def test_port_imports_neither_jax_nor_accord_tpu():
         " 'accord_tpu_torch.topology.geo', 'accord_tpu_torch.local.paging',"
         " 'accord_tpu_torch.journal.fault_index',"
         " 'accord_tpu_torch.workload.openloop',"
-        " 'accord_tpu_torch.sim.delayed_store'}\n"
+        " 'accord_tpu_torch.sim.delayed_store', 'accord_tpu_torch.soak',"
+        " 'accord_tpu_torch.measure_device', 'accord_tpu_torch.analysis',"
+        " 'accord_tpu_torch.analysis.surface',"
+        " 'accord_tpu_torch.analysis.__main__'}\n"
         "print(len(names), bad, sorted(need - set(names)))\n"
         "sys.exit(1 if bad or need - set(names) or len(names) < 150 else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
