@@ -40,7 +40,8 @@ Phases; any failure raises, exits non-zero and prints no result lines:
     pass, the tile) beside a memset of its output, K2's forward pass and
     fixpoint on phase 3's B = 512 random DAG, succ_w's ms, and the default
     lane's report (bench.default_report: the step's median ms, the rate and
-    the per-step profile);
+    the per-kernel profile, each kernel's count, p50 and p99 in us over 24
+    reps);
  6. K4, the key-set windows: kernel == plain torch == the scalar
     window_oracle on the tests/test_pallas.py inputs (W=3, B=128, P=11) for
     three seeds, on a B = 2048 window over a small key domain (a DAG 784
@@ -137,13 +138,13 @@ Phases; any failure raises, exits non-zero and prints no result lines:
     profiler sampling every flush window (ACCORD_PROFILE=1) and the launch
     counts zeroed just before each burn and read just after.  The flagship
     (-s 1 -o 1000 --device-store --device-verify --drop 0.1 --partitions
-    --drift --stores 4) and the mesh arm (-s 54400 -o 100 --mesh-store,
-    drop 0.12): each summary line == the JAX package's, byte for byte;
-    every store still on its device tier and no agent failure; K1's
-    launches == the deps flushes that reached it (the flat store's
-    deps_kernel laps, the mesh store's sharded_kernel laps), which with the
-    recovery flushes (recovery_kernel laps) make device_batches; K2's
-    launches == wave_batches (6 and 1); K4 and K5 not launched.  It prints
+    --drift --stores 4): its summary line == the JAX package's, byte for
+    byte; every store still on its device tier and no agent failure; K1's
+    launches == the deps flushes that reached it (deps_kernel laps), which
+    with the recovery flushes (recovery_kernel laps) make device_batches;
+    K2's launches == wave_batches (6); K4 and K5 not launched.  The mesh
+    store's burns (its stacked K1, sharded_kernel laps) run in phases 16
+    (delayed_mesh) and 18 (seed 58000).  It prints
     each burn's wall seconds, acked ops per wall second, the launches, and
     every store's encode, kernel and decode laps summed, beside the wall.
     Phases 13 and 14 run on the native tier and print it beside their times.
@@ -224,6 +225,16 @@ Phases; any failure raises, exits non-zero and prints no result lines:
     store left its device tier, no agent failure, K1 == the deps flushes,
     K2 == wave_batches, K4 and K5 not launched; it prints each run's wall
     seconds, launches and laps, and the phase's seconds.
+19. the bench's regression gate (accord_tpu_torch/bench_guard.py): (a) the
+    dry run of every config over the committed history
+    (accord_tpu_torch/BENCH_HISTORY.json): each exits 0 and names its
+    baseline; (b) on the card, against a scratch history in a temporary
+    directory: phase 5's default row is emitted as the baseline, then the
+    lane's report on phase 4's window again with ACCORD_PROFILE_SCALE=2:
+    run_guard returns 2, names "kernel deps_kernel", and leaves the failed
+    row retired (stale, guard_failed) and the baseline restored; then with
+    a scale of 0.5, no kernel problem.  It prints the baselines, the
+    gate's messages and the phase's seconds.
 The tolerance everywhere is exact equality: every output is integer or bool.
 
 Then, on lines of their own: the card's name and power limit (nvidia-smi),
@@ -235,10 +246,12 @@ import functools
 import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import sysconfig
+import tempfile
 import time
 
 import numpy as np
@@ -699,6 +712,87 @@ def node_process_lanes(card: str, device=None,
     return k1
 
 
+def bench_gate(card: str, win, baseline: dict) -> None:
+    """Phase 19: (a) ``run_guard_dry`` of every config over the committed
+    history; (b) the gate against a scratch history: `baseline` (phase 5's
+    default row) emitted, then the default lane's report on `win` (phase
+    4's window) with ``ACCORD_PROFILE_SCALE`` 2, which must fail on
+    ``kernel deps_kernel`` with the failed row retired and the baseline
+    restored, and 0.5, which must report no kernel problem."""
+    from accord_tpu_torch import bench, bench_guard
+
+    committed = os.path.join(os.path.dirname(bench_guard.__file__),
+                             "BENCH_HISTORY.json")
+    saved = bench_guard.HISTORY_PATH
+    scratch = tempfile.mkdtemp(prefix="guard-")
+    try:
+        # (a) the dry run over the committed history
+        bench_guard.HISTORY_PATH = committed
+        listed = []
+        for config in sorted(bench.LANES):
+            key = bench_guard.history_key(config)
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = bench_guard.run_guard_dry(key)
+            line = json.loads(out.getvalue())
+            check(rc == 0 and line["metric"] == f"{key}_guard"
+                  and line["baselines"], f"dry run of {key}: {line}")
+            listed.append(f"{key} " + ", ".join(
+                f"{b['pclass']} {b['value']}" for b in line["baselines"]))
+        log(f"[guard] dry run of {len(listed)} configs over the committed "
+            f"history, each exit 0: " + "; ".join(listed))
+
+        # (b) the gate on the card against a scratch history
+        bench_guard.HISTORY_PATH = os.path.join(scratch, "history.json")
+
+        def emitted(row: dict) -> None:
+            with contextlib.redirect_stdout(io.StringIO()):
+                bench_guard.emit(row, "default", record=True)
+
+        def recorded_lane() -> dict:
+            with open(bench_guard.HISTORY_PATH) as f:
+                return json.load(f)["default"]
+
+        emitted(dict(baseline))
+        recorded = recorded_lane()
+        check(list(recorded) == ["device"]
+              and recorded["device"]["platform"] == card,
+              f"baseline row: {recorded}")
+        base_k = baseline["profile"]["kernels"]
+        for scale in ("2", "0.5"):
+            os.environ["ACCORD_PROFILE_SCALE"] = scale
+            try:
+                row = bench.default_report(win)
+            finally:
+                del os.environ["ACCORD_PROFILE_SCALE"]
+            emitted(row)
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                rc = bench_guard.run_guard(row, "default")
+            problems = [ln for ln in err.getvalue().splitlines()
+                        if ln.startswith("# GUARD REGRESSION (default): ")]
+            kernels = [p for p in problems if ": kernel " in p]
+            lane = recorded_lane()
+            if scale == "2":
+                check(rc == 2 and any(": kernel deps_kernel: " in p
+                                      for p in kernels),
+                      f"2x profile: rc {rc}, {err.getvalue()}")
+                last = lane["superseded"][-1]
+                check(lane["device"] == recorded["device"]
+                      and last.get("guard_failed") and last.get("stale"),
+                      f"2x profile: the history after the gate {lane}")
+            else:
+                check(not kernels, f"0.5x profile: {err.getvalue()}")
+            log(f"[guard] {card}: ACCORD_PROFILE_SCALE={scale}: run_guard "
+                f"{rc}; p50 us " + ", ".join(
+                    f"{k} {base_k[k]['p50']} -> {v['p50']}"
+                    for k, v in sorted(row["profile"]["kernels"].items()))
+                + f"; {problems}")
+    finally:
+        bench_guard.HISTORY_PATH = saved
+        shutil.rmtree(scratch, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -939,7 +1033,7 @@ def main() -> int:
     # the step and its parts, timed by the default lane's report
     dl = bench.default_report(win)
     step_ms = dl["step_ms"]
-    graph_ms = dl["profile"]["in_batch_graph_median_ms"]
+    graph_ms = dl["profile"]["kernels"]["in_batch_graph"]["p50"] / 1e3
     # the rest of the step, which runs as plain torch on the card
     succ_ms = median_ms(
         lambda: deps_kernel.successor_write_eat(er, eer, ek, es, ekd), reps=7)
@@ -1719,9 +1813,7 @@ def main() -> int:
         check(not launched["keyset_windows"] and not launched["range_stab"],
               f"{name} launches {launched}")
 
-    for name, lap, waves in (("flagship", "deps_kernel", 6),
-                             ("mesh", "sharded_kernel", 1)):
-        flushes_reach_k1(name, *burn_on_card(name), lap, waves)
+    flushes_reach_k1("flagship", *burn_on_card("flagship"), "deps_kernel", 6)
 
     log(f"[phase] 15 starts at {time.perf_counter() - t_script:.1f} s")
     # ---- 15. the real-socket host on the card
@@ -1764,6 +1856,13 @@ def main() -> int:
                          waves)
     log(f"[soak] {card}, {tier}: phase 18 took "
         f"{time.perf_counter() - t18:.1f} s")
+
+    t19 = time.perf_counter()
+    log(f"[phase] 19 starts at {t19 - t_script:.1f} s")
+    # ---- 19. the bench's regression gate: the dry run over the committed
+    # history, then the gate on the card against a scratch history
+    bench_gate(card, win, dl)
+    log(f"[guard] {card}: phase 19 took {time.perf_counter() - t19:.1f} s")
 
     kernels = [
         {"name": "deps_tile", "route": "cuda",

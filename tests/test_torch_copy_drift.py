@@ -111,9 +111,24 @@ DEVIATIONS = {
                          "store factories; the card's name and power limit "
                          "where the reference probes a JAX platform; the "
                          "raw JSON goes to --out, with the wall seconds",
+    "bench.py": "the lanes rewritten over the port's stores and kernels "
+                "(CUDA-event times on the card, no rate on the CPU, no rep "
+                "differencing), the history and gate in bench_guard.py with "
+                "the reference's names; tcp and pipeline are always the "
+                "device-store lanes, keyed tcp+device and pipeline+device; "
+                "emit records only under --record, --guard or --fill (the "
+                "reference records every run), so a run by hand never "
+                "replaces a committed card-machine row; --fill probes the "
+                "card in a subprocess, not a JAX platform, and takes any "
+                "config (--only all re-records the history); of the "
+                "reference's lane hooks only the sim lanes' ACCORD_SLO_OPS, "
+                "ACCORD_SLO_RATE and ACCORD_SLO_STALL_US are read, the ones "
+                "a test sets; slo-wan's flat_tcp_baseline reads the history's "
+                "tcp+device row, where the reference reads tcp/host, a lane "
+                "of scalar stores that the port's bench does not run",
 }
 # port modules whose reference is a script at the repository's root
-ROOT_SCRIPTS = ("soak.py", "measure_device.py")
+ROOT_SCRIPTS = ("soak.py", "measure_device.py", "bench.py")
 
 
 def _renamed(path: Path) -> str:
@@ -137,4 +152,4 @@ def test_copies_match_the_reference_or_are_listed():
     assert not drifted, f"copies that differ from the reference: {drifted}"
     assert not stale, f"listed as deviating but identical: {stale}"
     assert not missing, f"listed but absent from the port: {missing}"
-    assert compared >= 159, compared
+    assert compared >= 160, compared

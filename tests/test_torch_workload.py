@@ -114,10 +114,15 @@ def test_run_wan_sim_matches_jax():
 
 
 @pytest.mark.slow
-def test_slo_wan_lane_matches_jax(monkeypatch):
+def test_slo_wan_lane_matches_jax(monkeypatch, tmp_path):
     """The WAN lane at full size with the scalar stores == the JAX lane
-    (the JAX lane's flat baseline row comes from its history file; the
-    port keeps none)."""
+    (the flat baseline row comes from each package's history file, the
+    JAX lane's from its tcp row, the port's from its tcp+device row: here
+    the port's history is empty, and the JAX lane's baseline is left
+    out)."""
+    from accord_tpu_torch import bench_guard
+    monkeypatch.setattr(bench_guard, "HISTORY_PATH",
+                        str(tmp_path / "history.json"))
     want = _jax_lane(monkeypatch, jax_bench.bench_slo_wan)
     want["slo"]["wan"]["flat_tcp_baseline"] = None
     got = port_bench.slo_wan_lane(store_factory=CommandStore)
