@@ -509,7 +509,7 @@ def check_per_node(rows, device: str, workers: int = 0,
     device tier, with deps flushes (``deps_kernel`` laps, ACCORD_PROFILE=1)
     > 0 that with the recovery flushes make its ``device_batches``, and its
     ``wavefront_kernel`` laps == its ``wave_batches``; on the card K1's
-    launches in the process == its deps flushes and K2's == its wave
+    and K6's launches in the process == its deps flushes and K2's == its wave
     batches, on the CPU none; K4 and K5 never; and the process holds off
     full collections (``host.tcp.hold_off_full_collections``).  `workers`
     > 0: the rows are the workers of one node, one a shard; the shards in
@@ -552,7 +552,8 @@ def check_per_node(rows, device: str, workers: int = 0,
         on_card = device == "cuda"
         want = {"deps_tile": deps if on_card else 0,
                 "wavefront": c["device_wave_batches"] if on_card else 0,
-                "keyset_windows": 0, "range_stab": 0}
+                "keyset_windows": 0, "range_stab": 0,
+                "succ_w": deps if on_card else 0}
         if n != want:
             raise AssertionError(f"{where}: launches {n}, want {want}")
 

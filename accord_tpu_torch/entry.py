@@ -1,5 +1,5 @@
 """Flagship entry point: the single-device resolve step on an example window,
-and the sharded step's dry run.
+and the sharded step's dry run with its protocol leg.
 
 The counterpart of ``__graft_entry__.py::_example``/``entry``/
 ``dryrun_multichip``.  The resolve
@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from accord_tpu_torch.impl.device_store import MeshDeviceCommandStore
 from accord_tpu_torch.local.cfk import CommandsForKey, InternalStatus
 from accord_tpu_torch.ops.encode import (BatchEncoder, scalar_deps_oracle,
                                          window_to_tensors)
@@ -21,6 +22,7 @@ from accord_tpu_torch.ops.sharded import (ShardedEncoder, make_sharded_step,
                                           resolve_step)
 from accord_tpu_torch.primitives.keys import Key
 from accord_tpu_torch.primitives.timestamp import Domain, TxnId, TxnKind
+from accord_tpu_torch.sim.burn import BurnRun
 from accord_tpu_torch.utils.backend import resolve_device
 from accord_tpu_torch.utils.random_source import RandomSource
 
@@ -58,17 +60,28 @@ def entry(device=None):
 
 
 def dryrun_multichip(n_shards: int, device=None) -> dict:
+    """The JAX dry run's two legs on `device` (``__graft_entry__.py:
+    dryrun_multichip``): the sharded step (``dryrun_sharded_step``), then
+    its protocol leg (``dryrun_protocol_leg``).  Raises AssertionError on
+    any difference; -> the two summaries in one dict.  `device` None means
+    the CUDA card; "cpu" runs the plain versions."""
+    out = dryrun_sharded_step(n_shards, device)
+    out.update(dryrun_protocol_leg(n_shards, device))
+    return out
+
+
+def _check(what: str, checks: dict) -> None:
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{what}: {', '.join(failed)}")
+
+
+def dryrun_sharded_step(n_shards: int, device=None) -> dict:
     """The sharded resolve step over `n_shards` key blocks, stacked on one
     device, on a small example window (4 keys a shard, 64 txns, a window of
     16), checked element for element: every wave >= 0, the decoded deps ==
     the scalar oracle, and the in-window graph and the waves == the
-    single-device ``resolve_step`` on the flat encoding.  Raises
-    AssertionError on any difference; -> a summary dict.  `device` None
-    means the CUDA card; "cpu" runs the plain versions.
-
-    The JAX dry run's protocol leg (a hostile ``verify=True`` burn served by
-    the mesh store, ``__graft_entry__.py:131-162``) waits for the port of
-    the protocol store."""
+    single-device ``resolve_step`` on the flat encoding.  -> a summary."""
     dev = resolve_device(device)
     cfks, batch = _example(n_keys=4 * n_shards, n_existing=64, n_batch=16)
     enc = ShardedEncoder(cfks, batch, n_shards)
@@ -92,10 +105,38 @@ def dryrun_multichip(n_shards: int, device=None) -> dict:
         (dep_bb[:n, :n] == dep_bb1[:n, :n]).all())
     checks["waves == resolve_step's"] = bool(
         (waves == waves1[:n].cpu()).all())
-    failed = [what for what, ok in checks.items() if not ok]
-    if failed:
-        raise AssertionError(f"dryrun_multichip({n_shards}) on {dev}: "
-                             f"{', '.join(failed)}")
+    _check(f"dryrun_multichip({n_shards}) on {dev}", checks)
     return {"n_shards": n_shards, "device": str(dev),
             "edges": int(dep_count[:n].sum()), "max_wave": int(waves.max()),
             "es": int(mask.shape[2]), "ks": enc.ks}
+
+
+def dryrun_protocol_leg(n_shards: int, device=None) -> dict:
+    """The protocol leg of the JAX dry run (``__graft_entry__.py:131-162``):
+    a hostile burn (seed 61, 60 ops, 3 nodes, 6 keys, 10% message loss,
+    partitions, 2 command stores a node) whose deps scans are served by
+    ``MeshDeviceCommandStore``s of `n_shards` shards on `device`, each
+    served scan checked inline against the scalar scan (``verify=True``) and
+    the history checked by the burn's verifiers; then no op lost or
+    pending, acks, and device hits.  The JAX leg also checks that each
+    store has a mesh; the port's mesh store always stacks its shards on one
+    device, so the check here is that every store is a
+    ``MeshDeviceCommandStore``.  -> {"protocol_acks": the burn's acks,
+    "protocol_device_hits": its stores' device hits}."""
+    dev = resolve_device(device)
+    run = BurnRun(61, 60, nodes=3, keys=6, drop_prob=0.10, partitions=True,
+                  num_command_stores=2,
+                  store_factory=MeshDeviceCommandStore.factory(
+                      n_shards=n_shards, flush_window_us=300, verify=True,
+                      device=dev))
+    stats = run.run()
+    stores = [s for node in run.cluster.nodes.values()
+              for s in node.command_stores.all()]
+    hits = sum(s.device_hits for s in stores)
+    _check(f"dryrun_multichip({n_shards}) protocol leg on {dev}", {
+        "no op lost or pending": stats.lost == 0 and stats.pending == 0,
+        "acks": stats.acks > 0,
+        "mesh-served scans": hits > 0,
+        "every store a MeshDeviceCommandStore": all(
+            isinstance(s, MeshDeviceCommandStore) for s in stores)})
+    return {"protocol_acks": stats.acks, "protocol_device_hits": hits}

@@ -615,7 +615,7 @@ _WARMED: set = set()  # the devices warmed in this process
 
 def _warm_card(device) -> None:
     """Create the CUDA context, build and load the kernels a store's flush
-    launches (K1, K2), and run every step of a store's flush once
+    launches (K6, K1, K2), and run every step of a store's flush once
     (``workload.warm_flush_path``), so that no torch kernel is first loaded
     inside the node's loop; nothing for a CPU device."""
     from accord_tpu_torch.utils.backend import resolve_device
@@ -625,8 +625,9 @@ def _warm_card(device) -> None:
     _WARMED.add(str(dev))
     from accord_tpu_torch.ops import cuda_kernels as ck
     from accord_tpu_torch.workload import warm_flush_path
-    ck.build((ck.DEPS_TILE, ck.WAVEFRONT))
-    for k in (ck.DEPS_TILE, ck.WAVEFRONT):
+    flush_kernels = (ck.SUCC_W, ck.DEPS_TILE, ck.WAVEFRONT)
+    ck.build(flush_kernels)
+    for k in flush_kernels:
         k.lib()
     before = {k.name: k.launches for k in ck.KERNELS}
     warm_flush_path(dev)

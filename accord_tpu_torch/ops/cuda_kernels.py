@@ -13,7 +13,17 @@ The counterpart of ``accord_tpu/ops/pallas_kernels.py``:
   an XLA fusion, not of a Pallas kernel: ``range_kernel.range_stab_counts``,
   whose [Q, N] compare-and-count plain PyTorch cannot fuse, on the
   rangestress lane.  It indexes the queries and streams the intervals once
-  (four steps in five launches: sort, stream, combine, correct).
+  (four steps in five launches: sort, stream, combine, correct);
+* K6, succ_w (``csrc/succ_w.cu``), is the counterpart of an XLA sort and
+  segmented scan, not of a Pallas kernel: each entry's successor
+  committed-write executeAt (``deps_kernel.successor_write_eat``), which the
+  deps tile takes as an input.  ``batched_active_deps_cuda`` runs it before
+  every K1 launch, so it sits under every deps flush (four launches and a
+  memset: count, scatter, sort and merge, search; ``succ_w_steps`` times
+  them apart).  On the card, ``tests/test_torch_cuda.py`` holds it ``==``
+  the plain version on every ``workload.succ_w_case`` at E = 128,768, flat
+  and stacked, and runs the deps step, ``resolve_step`` and the sharded
+  step with the plain succ_w made to raise.
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface, at first use, into ``accord_tpu_torch/_build/`` under a
@@ -22,7 +32,8 @@ Importing this module builds nothing.
 
 Every wrapper takes the plain PyTorch version (ops/deps_kernel.py,
 ops/wavefront.py, ops/keyset.py, ops/range_kernel.py) when its tensors lie
-on the CPU, and only then: on CUDA tensors it launches its kernel or raises.  Each launch's error
+on the CPU, and only then: on CUDA tensors it launches its kernel or
+raises.  Each launch's error
 code is checked, and each wrapper adds one to its kernel's ``launches``
 count where it launches, and nowhere else.
 """
@@ -43,6 +54,7 @@ from typing import Dict, Iterable, Optional, Tuple
 import torch
 
 from accord_tpu_torch.ops import deps_kernel, keyset, range_kernel, wavefront
+from accord_tpu_torch.ops.encode import WRITE_KIND_MASK
 from accord_tpu_torch.utils.timing import median_ms
 
 _PACKAGE = Path(__file__).resolve().parent.parent
@@ -152,7 +164,13 @@ RANGE_STAB = Kernel("range_stab", "range_stab.cu", {
     "range_stab_tile": ((_I,), _I),
     "range_stab_error_string": ((_I,), ctypes.c_char_p),
 })
-KERNELS = (DEPS_TILE, WAVEFRONT, KEYSET_WINDOWS, RANGE_STAB)
+SUCC_W = Kernel("succ_w", "succ_w.cu", {
+    "succ_w_launch": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P),
+                      _I),
+    "succ_w_scratch_words": ((_I, _I, _I), ctypes.c_longlong),
+    "succ_w_error_string": ((_I,), ctypes.c_char_p),
+})
+KERNELS = (DEPS_TILE, WAVEFRONT, KEYSET_WINDOWS, RANGE_STAB, SUCC_W)
 # K4's range (csrc/keyset_windows.cu): key slots B*P a window, P >= 1.  Up
 # to 16 keys a row and 22,528 slots a window's index lives in one block's
 # shared memory; above, in global scratch (the large-window kernel).
@@ -319,22 +337,112 @@ def deps_tile_phases(*args):
         for ph in (1, 2))
 
 
+def _succ_w_shape(args, n_keys: int):
+    """Checks K6's inputs (CUDA tensors) -> (device, S, E); S = 1 for a
+    flat window."""
+    entry_rank = args[0]
+    if entry_rank.dim() not in (1, 2):
+        raise ValueError(f"expected entry arrays [E] or [S, E], got "
+                         f"{tuple(entry_rank.shape)}")
+    for name, t in zip(("entry_rank", "entry_eat_rank", "entry_key",
+                        "entry_status", "entry_kind"), args):
+        _require(t, name, torch.int32, tuple(entry_rank.shape))
+    s = entry_rank.shape[0] if entry_rank.dim() == 2 else 1
+    e = entry_rank.shape[-1]
+    if n_keys < 0 or s * max(e, n_keys) >= 2 ** 31:
+        raise ValueError(f"window too large for succ_w: S={s} E={e} "
+                         f"Ks={n_keys}")
+    return entry_rank.device, s, e
+
+
+def _succ_w_launch(args, s, e, n_keys, scratch, succ, steps):
+    entry_rank, entry_eat_rank, entry_key, entry_status, entry_kind = args
+    with torch.cuda.device(succ.device):
+        stream = torch.cuda.current_stream(succ.device).cuda_stream
+        code = SUCC_W.lib().succ_w_launch(
+            entry_key.data_ptr(), entry_rank.data_ptr(),
+            entry_eat_rank.data_ptr(), entry_status.data_ptr(),
+            entry_kind.data_ptr(), s, e, n_keys, WRITE_KIND_MASK,
+            scratch.data_ptr(), succ.data_ptr(), steps, stream)
+    SUCC_W.check(code)
+    SUCC_W.launches += 1
+
+
+def _succ_w_scratch(dev, s, e, n_keys):
+    return torch.empty(SUCC_W.lib().succ_w_scratch_words(s, e, n_keys),
+                       dtype=torch.int32, device=dev)
+
+
+def successor_write_eat_cuda(entry_rank, entry_eat_rank, entry_key,
+                             entry_status, entry_kind, n_keys: int):
+    """succ_w in K6 on CUDA tensors, in its plain version on CPU tensors.
+
+    Entry arrays int32 [E] (a flat window, ``deps_kernel.successor_write_eat``)
+    or [S, E] in the sharded key-block layout, keys local to each shard's
+    block of `n_keys` keys (``deps_kernel.sharded_successor_write_eat``)
+    -> int32 of the same shape: each entry's smallest committed-write eat
+    after it at its key, in (eat, index) order (INT32_MAX where none).
+    `n_keys` is the keys of one shard's block (of the window when flat);
+    keys outside it are still taken, only the buckets of K6's counting
+    sort fold.  One launch sequence on the current stream, no host sync."""
+    args = (entry_rank, entry_eat_rank, entry_key, entry_status, entry_kind)
+    if _cuda_device(args) is None:
+        if entry_rank.dim() == 2:
+            return deps_kernel.sharded_successor_write_eat(*args, n_keys)
+        return deps_kernel.successor_write_eat(*args)
+    dev, s, e = _succ_w_shape(args, n_keys)
+    succ = torch.empty_like(entry_rank)
+    if s * e:
+        _succ_w_launch(args, s, e, n_keys, _succ_w_scratch(dev, s, e, n_keys),
+                       succ, 4)
+    return succ
+
+
+SUCC_W_STEPS = ("count", "scatter", "sort", "search")
+
+
+def succ_w_steps(entry_rank, entry_eat_rank, entry_key, entry_status,
+                 entry_kind, n_keys: int, reps=15, per_batch=10):
+    """K6's four steps timed apart on CUDA tensors (flat or stacked) ->
+    {step: median ms (CUDA events)}: the memset and the count (its last
+    block's scan of the counts included), the scatter, the sort and the
+    merges, the search.  Each step's time is the difference of the runs of
+    the steps up to it and up to the one before, on the same buffers;
+    every run counts as one of K6's launches."""
+    args = (entry_rank, entry_eat_rank, entry_key, entry_status, entry_kind)
+    if _cuda_device(args) is None or entry_rank.numel() == 0:
+        raise ValueError("succ_w_steps times K6 on a non-empty window of "
+                         "CUDA tensors")
+    dev, s, e = _succ_w_shape(args, n_keys)
+    succ = torch.empty_like(entry_rank)
+    scratch = _succ_w_scratch(dev, s, e, n_keys)
+    upto = [median_ms(lambda n=n: _succ_w_launch(args, s, e, n_keys, scratch,
+                                                 succ, n),
+                      reps=reps, per_batch=per_batch)
+            for n in range(1, 5)]
+    return {name: upto[i] - (upto[i - 1] if i else 0.0)
+            for i, name in enumerate(SUCC_W_STEPS)}
+
+
 def batched_active_deps_cuda(entry_rank, entry_eat_rank, entry_key,
                              entry_status, entry_kind, txn_rank,
                              txn_witness_mask, touches):
-    """Counterpart of ``batched_active_deps_pallas``: succ_w (a sort and a
-    segmented scan) stays plain torch, the tile runs in K1 (on CPU tensors
-    in its plain version, so this is ``deps_kernel.batched_active_deps``).
-    Entry arrays [E] give the flat [B, E] mask; entry arrays [S, E] in the
-    sharded key-block layout give [S, B, E] and the counts summed over the
-    shards, from one succ_w pass and one K1 launch pair for all S."""
-    if entry_rank.dim() == 2:
-        succ_w = deps_kernel.sharded_successor_write_eat(
-            entry_rank, entry_eat_rank, entry_key, entry_status, entry_kind,
-            deps_kernel.shard_width(touches, entry_rank.shape[0]))
+    """Counterpart of ``batched_active_deps_pallas``: succ_w in K6, then the
+    tile in K1 (on CPU tensors both in their plain versions, so this is
+    ``deps_kernel.batched_active_deps``).  Entry arrays [E] give the flat
+    [B, E] mask; entry arrays [S, E] in the sharded key-block layout give
+    [S, B, E] and the counts summed over the shards, from one K6 launch
+    sequence and one K1 launch pair for all S.  An empty tile (no row, no
+    entry or no key), which K1 writes without reading succ_w, launches
+    neither, so K6's launches stay K1's."""
+    ks = deps_kernel.shard_width(touches, entry_rank.shape[0]) \
+        if entry_rank.dim() == 2 else touches.shape[1]
+    if 0 in (touches.shape[0], ks, entry_rank.shape[-1]):
+        succ_w = torch.zeros_like(entry_rank)
     else:
-        succ_w = deps_kernel.successor_write_eat(
-            entry_rank, entry_eat_rank, entry_key, entry_status, entry_kind)
+        succ_w = successor_write_eat_cuda(entry_rank, entry_eat_rank,
+                                          entry_key, entry_status,
+                                          entry_kind, ks)
     return deps_tile_cuda(touches, entry_key, entry_rank, entry_eat_rank,
                           entry_status, entry_kind, succ_w, txn_rank,
                           txn_witness_mask)

@@ -12,7 +12,8 @@ every kind and status, slow-path executeAts and per-key deps, so the
 missing[] and elision paths are exercised.  ``recovery_world`` mixes such a
 world's new transactions with ids it already knows into a window of
 recovery probes.  ``keyset_cases`` are the key-set windows on which a sparse
-key-to-rows formulation can go wrong.  ``rangestress_inputs`` draws
+key-to-rows formulation can go wrong, and ``succ_w_case`` the entry arrays
+on which succ_w's can.  ``rangestress_inputs`` draws
 ``bench.py::bench_rangestress``'s intervals and queries.
 
 The store tier is driven by plans: ``store_plan`` (a seeded random mix of
@@ -342,6 +343,77 @@ def keyset_cases(seed=0, full_slots=False):
             cases.append((f"B = {b}, P = {p}", tk, tr))
         cases += [large_keyset_window(4096, 11), large_keyset_window(1200, 20)]
     return cases
+
+
+SUCC_W_CASES = ("one hot key", "all writes", "no writes", "equal eats",
+                "single entry", "pads alone", "encoder layout")
+_STATUS_PAD = int(InternalStatus.INVALID_OR_TRUNCATED)
+
+
+def succ_w_case(name: str, e: int = 512, n_shards: int = 0, seed: int = 0):
+    """One window on which succ_w can go wrong -> (the five entry arrays
+    (entry_rank, entry_eat_rank, entry_key, entry_status, entry_kind), int32
+    [E], or [S, E] with keys local to each shard when `n_shards` is S, and
+    the keys of one shard's block).  Eats are drawn with ties; every status
+    and kind (TxnKind 1..6, writes 2 and 5) appears unless the case says
+    otherwise.
+
+    one hot key: every entry on key 0 of 4.  all writes: every entry a
+    committed write.  no writes: none is (each fails one of the filter's
+    three clauses: status, rank, kind).  equal eats: one key of three, eats
+    in 0..3, a write before and after most entries of the same eat.  single
+    entry: E = 1, a committed write.  pads alone: the encoder's pads (key 0,
+    eat -1, rank -1, status INACTIVE).  encoder layout: keys in blocks in
+    a shuffled key order, as ``BatchEncoder`` lays out its CommandsForKey,
+    then a tail of pads on key 0."""
+    rng = np.random.default_rng([seed, SUCC_W_CASES.index(name)])
+    if name == "single entry":
+        e = 1
+    rows = [_succ_w_row(rng, name, e) for _ in range(max(1, n_shards))]
+    arrays = tuple(np.stack([r[i] for r, _ in rows]) if n_shards
+                   else rows[0][0][i] for i in range(5))
+    return tuple(a.astype(np.int32) for a in arrays), rows[0][1]
+
+
+def _succ_w_row(rng, name: str, e: int):
+    n_keys = {"one hot key": 4, "equal eats": 3, "single entry": 1,
+              "pads alone": 1}.get(name, 16)
+    key = rng.integers(0, n_keys, e)
+    eat = rng.integers(-1, max(2, e // 8), e)
+    rank = rng.integers(-1, max(2, e), e)
+    status = rng.integers(0, 8, e)
+    kind = rng.integers(1, 7, e)
+    if name == "one hot key":
+        key[:] = 0
+    elif name in ("all writes", "single entry"):
+        rank = np.abs(rank)
+        status = rng.integers(4, 7, e)
+        kind = rng.choice([2, 5], e)
+    elif name == "no writes":
+        # each entry fails one clause of the filter and passes the others
+        clause = rng.integers(0, 3, e)
+        status = np.where(clause == 0, rng.choice([0, 1, 2, 3, 7], e),
+                          rng.integers(4, 7, e))
+        rank = np.where(clause == 1, -1, np.abs(rank))
+        kind = np.where(clause == 2, rng.choice([1, 3, 4, 6], e),
+                        rng.choice([2, 5], e))
+    elif name == "equal eats":
+        key[:] = 1
+        eat = rng.integers(0, 4, e)
+        status = np.where(rng.random(e) < 0.5, rng.integers(4, 7, e), 2)
+        rank = np.abs(rank)
+        kind = rng.choice([1, 2, 5], e)
+    elif name == "pads alone":
+        key, eat, rank = np.zeros(e), np.full(e, -1), np.full(e, -1)
+        status, kind = np.full(e, _STATUS_PAD), np.zeros(e)
+    elif name == "encoder layout":
+        pads = e // 8
+        sizes = rng.multinomial(e - pads, np.ones(n_keys) / n_keys)
+        key = np.concatenate([np.repeat(rng.permutation(n_keys), sizes),
+                              np.zeros(pads)])
+        eat[e - pads:], rank[e - pads:] = -1, -1
+        status[e - pads:], kind[e - pads:] = _STATUS_PAD, 0
+    return (rank, eat, key, status, kind), n_keys
 
 
 # -------------------------------------------------------------- store tier --

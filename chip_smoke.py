@@ -13,12 +13,15 @@ Phases; any failure raises, exits non-zero and prints no result lines:
  1. build the port's three native C++ extensions (accord_tpu_torch/native/:
     the sorted arrays, the CommandsForKey core and the wire codec, g++ at
     first use next to their sources) and fail with g++'s message if one is
-    missing or the interpreter's Python.h is absent; then the four kernels
+    missing or the interpreter's Python.h is absent; then the five kernels
     from accord_tpu_torch/csrc/ (one nvcc per source, all started together);
     print each build's seconds and ptxas' report;
  2. K1, the deps tile: kernel == plain torch on the card for three seeds of
     a small random world and for a world with K > 16384 (also cut to an E
-    and a B that are not multiples of 4);
+    and a B that are not multiples of 4); K6, succ_w: kernel == plain torch
+    on every workload.succ_w_case (one hot key, all writes, no writes,
+    equal eats, a single entry, pads alone, the encoder's key blocks) at
+    phase 4's E = 128,768, flat and stacked in 8 shards of 16,096;
  3. K2, the wavefront: kernel == plain torch == waves_oracle on random DAGs
     over permuted ranks at B = 512 (8%), 1001, 1152 and 2048, and on chains
     1024, 1152 and 2048 deep (the 2048 window's working set does not fit in
@@ -33,15 +36,19 @@ Phases; any failure raises, exits non-zero and prints no result lines:
     counting run (bench.default_window: encoded and resolved by one
     resolve_step on cuda), with the launch counts zeroed just before and
     read just after; deps == the scalar oracle, edge count == the scalar
-    scan's == 1,152,177, every wave >= 0, both kernels launched, and K2
-    takes its forward pass on the window;
+    scan's == 1,152,177, every wave >= 0, the three kernels of the step
+    launched (K6's launches == K1's), and K2 takes its forward pass on the
+    window;
  5. timing at the main path's shapes: each kernel's median ms (CUDA events),
     its bound, its plain version's ms, K1's two launches apart (the packing
     pass, the tile) beside a memset of its output, K2's forward pass and
-    fixpoint on phase 3's B = 512 random DAG, succ_w's ms, and the default
-    lane's report (bench.default_report: the step's median ms, the rate and
-    the per-kernel profile, each kernel's count, p50 and p99 in us over 24
-    reps);
+    fixpoint on phase 3's B = 512 random DAG, K6 == plain on the window and
+    its ms beside its bound and the plain succ_w's ms, its four steps apart
+    (count, scatter, sort and merge, search), the plain step's ms,
+    and the default lane's report (bench.default_report: the step's median
+    ms, the rate and the per-kernel profile, each kernel's count, p50 and
+    p99 in us over 24 reps) with the step's split into K6, K1, the graph and
+    K2;
  6. K4, the key-set windows: kernel == plain torch == the scalar
     window_oracle on the tests/test_pallas.py inputs (W=3, B=128, P=11) for
     three seeds, on a B = 2048 window over a small key domain (a DAG 784
@@ -93,14 +100,17 @@ Phases; any failure raises, exits non-zero and prints no result lines:
 12. the sharded step on phase 4's build_world window split into 8 key-range
     shards (ShardedEncoder, pad 8), stacked on the card: with the launch
     counts zeroed just before and read just after, one make_sharded_step
-    call launches K1 once and K2 once; the decoded deps == the scalar
+    call launches K6 once, K1 once and K2 once; the decoded deps == the scalar
     oracle, the summed counts == 1,152,177, graph and waves == phase 4's
     resolve_step; K1's stacked launch == its per-shard plain loop at full
     size (and with the shards' E cut by 8, the other 16-byte alignment of
-    the planes' rows); S = 1 on phase 4's arrays == resolve_step; the deps
-    step on the same window as probes (ShardedEncoder.for_probes, pad 128),
-    one K1 launch and no other, decode_key_deps == BatchEncoder.for_probes's
-    decode through resolve_step; entry.dryrun_multichip(8) on the card.
+    the planes' rows); K6 on the stack == the plain sharded succ_w; S = 1
+    on phase 4's arrays == resolve_step; the deps step on the same window
+    as probes (ShardedEncoder.for_probes, pad 128), one K6 and one K1
+    launch and no other, decode_key_deps == BatchEncoder.for_probes's
+    decode through resolve_step; entry.dryrun_multichip(8) on the card,
+    with its protocol leg (the JAX dry run's hostile verify=True burn
+    served by mesh stores of 8 shards: no op lost or pending, acks, hits).
     Then the stacked step's median ms at S = 8 and S = 1 beside
     resolve_step's, K1's stacked ms at both alignments beside its byte
     bound and a memset of its [S, B, E] output, the deps step's ms, and
@@ -117,15 +127,15 @@ Phases; any failure raises, exits non-zero and prints no result lines:
     (every served scan checked inline against the scalar scan), each store
     checked after every window for a disabled device tier or a failure its
     agent recorded, and the launch counts zeroed just before it and read
-    just after: the PreAccept window (512 preaccepts in one flush: one K1
-    launch and no other; the version gate serves exactly the window's
-    first-touch preaccepts and misses the rest, as the JAX store does on the
-    CPU), the same window through the mesh store (one stacked K1 launch;
-    results and counters == the flat store's), a recovery window (512
-    BeginRecovery probes: every recovery scan served, one K1 launch for
-    their deps), a commit window and the Apply window (1536 Applies in one
-    flush: one K2 launch and no other, the waves == the host oracle, every
-    planned Apply executed), then 1024 range txns registered and a range
+    just after: the PreAccept window (512 preaccepts in one flush: one K6
+    and one K1 launch and no other; the version gate serves exactly the
+    window's first-touch preaccepts and misses the rest, as the JAX store
+    does on the CPU), the same window through the mesh store (one stacked
+    K6 and one stacked K1 launch; results and counters == the flat
+    store's), a recovery window (512 BeginRecovery probes: every recovery
+    scan served, one K6 and one K1 launch for their deps), a commit window
+    and the Apply window (1536 Applies in one flush: one K2 launch and no
+    other, the waves == the host oracle, every planned Apply executed), then 1024 range txns registered and a range
     window (448 key-domain and 64 range-domain preaccepts, the range arm
     served). It prints the history's seconds, E, and per window the wall ms
     split into the profiler's encode, kernel and decode laps and the rest,
@@ -140,7 +150,8 @@ Phases; any failure raises, exits non-zero and prints no result lines:
     (-s 1 -o 1000 --device-store --device-verify --drop 0.1 --partitions
     --drift --stores 4): its summary line == the JAX package's, byte for
     byte; every store still on its device tier and no agent failure; K1's
-    launches == the deps flushes that reached it (deps_kernel laps), which
+    (and K6's) launches == the deps flushes that reached it (deps_kernel
+    laps), which
     with the recovery flushes (recovery_kernel laps) make device_batches;
     K2's launches == wave_batches (6); K4 and K5 not launched.  The mesh
     store's burns (its stacked K1, sharded_kernel laps) run in phases 16
@@ -235,7 +246,10 @@ Phases; any failure raises, exits non-zero and prints no result lines:
     row retired (stale, guard_failed) and the baseline restored; then with
     a scale of 0.5, no kernel problem.  It prints the baselines, the
     gate's messages and the phase's seconds.
-The tolerance everywhere is exact equality: every output is integer or bool.
+Every K1 launch on the path comes with one K6 launch before it (succ_w, which
+the tile reads), so from phase 4 on each count of K1's launches is held ==
+K6's as well.  The tolerance everywhere is exact equality: every output is
+integer or bool.
 
 Then, on lines of their own: the card's name and power limit (nvidia-smi),
 the kernels JSON object, and last {"ok": true, "device": {...}}.
@@ -405,8 +419,8 @@ def real_socket_host(card: str, device=None):
                         "device_flush_windows")}
     k1_flushes = laps.get("deps_kernel", (0, 0))[0]
     # plain torch on the CPU launches nothing
-    check(tcp_launches["deps_tile"] == (k1_flushes if on_card else 0)
-          and k1_flushes > 0
+    check(tcp_launches["deps_tile"] == tcp_launches["succ_w"]
+          == (k1_flushes if on_card else 0) and k1_flushes > 0
           and k1_flushes + laps.get("recovery_kernel", (0, 0))[0]
           == summed["device_batches"],
           f"TCP host K1 launches {tcp_launches['deps_tile']}, laps {laps}, "
@@ -536,7 +550,8 @@ def paged_store_on_card(card: str, tier: str, device=None):
                         "device_hits", "device_misses",
                         "device_range_batches")}
     k1_flushes = laps.get("deps_kernel", (0, 0))[0]
-    check(launched["deps_tile"] == (k1_flushes if on_card else 0)
+    check(launched["deps_tile"] == launched["succ_w"]
+          == (k1_flushes if on_card else 0)
           and k1_flushes > 0 and "sharded_kernel" not in laps
           and k1_flushes + laps.get("recovery_kernel", (0, 0))[0]
           == summed["device_batches"],
@@ -810,7 +825,8 @@ def main() -> int:
     from accord_tpu_torch.ops import cuda_kernels as ck
     from accord_tpu_torch.ops import (deps_kernel, keyset, range_kernel,
                                       wavefront)
-    from accord_tpu_torch.ops.encode import (PAD, BatchEncoder,
+    from accord_tpu_torch.ops.encode import (PAD, WRITE_KIND_MASK,
+                                             BatchEncoder,
                                              scalar_deps_oracle,
                                              window_to_tensors)
     from accord_tpu_torch.ops.sharded import (ShardedEncoder,
@@ -826,17 +842,18 @@ def main() -> int:
     from accord_tpu_torch.sim import burn
     from accord_tpu_torch.soak import EXPECTED_LINES as SOAK_LINES
     from accord_tpu_torch.soak import load_expected
-    from accord_tpu_torch.workload import (PROTOCOL_BURNS, build_world,
-                                           device_counters,
+    from accord_tpu_torch.workload import (PROTOCOL_BURNS, SUCC_W_CASES,
+                                           build_world, device_counters,
                                            first_touch_preaccepts,
                                            keyset_cases, random_world,
                                            range_cases, range_index_cases,
-                                           rangestress_inputs, recovery_world)
+                                           rangestress_inputs, recovery_world,
+                                           succ_w_case)
 
     dev = torch.device("cuda", 0)
     sys.setrecursionlimit(20000)  # waves_oracle recurses along DAG chains
     err = {"deps_tile": 0, "wavefront": 0, "keyset_windows": 0,
-           "range_stab": 0}
+           "range_stab": 0, "succ_w": 0}
 
     t0 = time.perf_counter()
     seconds = ck.build()
@@ -885,6 +902,30 @@ def main() -> int:
     cfks, batch = build_world(n_keys=16500, n_existing=3000, n_batch=256,
                               seed=11)
     deps_case("K=16500 world", cfks, batch, ragged=True)
+
+    # ---- 2. K6 == plain
+    def succ_w_vs_plain(label, arrays, n_keys):
+        """K6 on `arrays` (the five entry arrays, flat or stacked) == the
+        plain succ_w on the same CUDA tensors."""
+        got = ck.successor_write_eat_cuda(*arrays, n_keys)
+        want = deps_kernel.sharded_successor_write_eat(*arrays, n_keys) \
+            if arrays[0].dim() == 2 else \
+            deps_kernel.successor_write_eat(*arrays)
+        torch.cuda.synchronize()
+        e_ = max_abs_err(got, want)
+        err["succ_w"] = max(err["succ_w"], e_)
+        check(e_ == 0, f"K6 != plain on {label}")
+        return int((got != 2 ** 31 - 1).sum())
+
+    for name in SUCC_W_CASES:
+        for shards, e_case in ((0, 128_768), (8, 16_096)):
+            arrays, n_keys = succ_w_case(name, e_case, shards)
+            found = succ_w_vs_plain(
+                f"{name}, S = {shards}",
+                tuple(torch.from_numpy(a).to(dev) for a in arrays), n_keys)
+            log(f"[K6] {name}: {'flat' if not shards else f'S = {shards}'} "
+                f"E={arrays[0].shape[-1]} Ks={n_keys}: {found} entries "
+                f"with a successor write == plain")
 
     log(f"[phase] 3 starts at {time.perf_counter() - t_script:.1f} s")
     # ---- 3. K2 == plain == oracle, and the path it takes
@@ -973,8 +1014,10 @@ def main() -> int:
     log(f"[main] encode, resolve_step and the scalar scan "
         f"{time.perf_counter() - t0:.1f}s: B={args[5].shape[0]} "
         f"E={args[0].shape[0]} K={args[8].shape[1]}")
-    check(launches["deps_tile"] > 0 and launches["wavefront"] > 0,
-          f"a kernel of the flush-window path was not launched: {launches}")
+    check(launches["deps_tile"] > 0 and launches["wavefront"] > 0
+          and launches["succ_w"] == launches["deps_tile"],
+          f"a kernel of the flush-window path was not launched, or K6 not "
+          f"with each K1: {launches}")
 
     dep_mask, dep_count, dep_bb, waves = win.out
     n = len(batch)
@@ -996,7 +1039,10 @@ def main() -> int:
     log(f"[phase] 5 starts at {time.perf_counter() - t_script:.1f} s")
     # ---- 5. timing at the main path's shapes
     er, eer, ek, es, ekd, tr, twm, tk, touches = args
-    succ = deps_kernel.successor_write_eat(er, eer, ek, es, ekd)
+    succ = ck.successor_write_eat_cuda(er, eer, ek, es, ekd, touches.shape[1])
+    err["succ_w"] = max(err["succ_w"], max_abs_err(
+        succ, deps_kernel.successor_write_eat(er, eer, ek, es, ekd)))
+    check(err["succ_w"] == 0, "K6 != plain at full size")
     k1_args = (touches, ek, er, eer, es, ekd, succ, tr, twm)
     m_k, c_k = ck.deps_tile_cuda(*k1_args)
     m_p, c_p = deps_kernel.deps_tile(*k1_args)
@@ -1030,16 +1076,27 @@ def main() -> int:
         lambda: ck.execution_waves_cuda(dag, dag_rank), reps=15, per_batch=10)
     k2_dag_fixpoint_ms = median_ms(
         lambda: ck.execution_waves_cuda(dag), reps=15, per_batch=10)
+    k6_ms = median_ms(lambda: ck.successor_write_eat_cuda(
+        er, eer, ek, es, ekd, touches.shape[1]), reps=15, per_batch=10)
+    k6_steps = ck.succ_w_steps(er, eer, ek, es, ekd, touches.shape[1])
+    succ_plain_ms = median_ms(
+        lambda: deps_kernel.successor_write_eat(er, eer, ek, es, ekd), reps=7)
+
+    def plain_step():
+        """The step in its plain versions on the card (K3's plain ms)."""
+        deps_kernel.batched_active_deps(er, eer, ek, es, ekd, tr, twm,
+                                        touches)
+        return wavefront.execution_waves(
+            deps_kernel.in_batch_graph(tr, twm, tk, touches))
+
+    step_plain_ms = median_ms(plain_step, reps=5)
     # the step and its parts, timed by the default lane's report
     dl = bench.default_report(win)
     step_ms = dl["step_ms"]
     graph_ms = dl["profile"]["kernels"]["in_batch_graph"]["p50"] / 1e3
-    # the rest of the step, which runs as plain torch on the card
-    succ_ms = median_ms(
-        lambda: deps_kernel.successor_write_eat(er, eer, ek, es, ekd), reps=7)
     log(f"[default] {json.dumps(dl)}")
-    log("[time] no single PyTorch call computes either kernel's function, "
-        "so library_ms is null for both")
+    log("[time] no single PyTorch call computes K1's, K2's or K6's "
+        "function, so library_ms is null for each")
 
     b, e, k = touches.shape[0], er.shape[0], touches.shape[1]
     # K1 moves each input once (touches B*K bytes, six int32 [E] vectors,
@@ -1064,11 +1121,21 @@ def main() -> int:
 
     k1_bound, k1_by = bound(k1_bytes, k1_ops)
     k2_bound, k2_by = bound(k2_bytes, k2_ops)
-    # the step (K3): the sum of its four steps' byte bounds, each counting
-    # its own inputs read once and outputs written once: succ_w reads five
-    # int32 [E] vectors and writes one, the graph reads three int32 [B]
-    # vectors and touches and writes the B*B graph
+    # K6 reads five int32 [E] vectors and writes one; its function needs
+    # the committed-write filter and a key compare an entry (six
+    # operations), and this run's writes ordered within their keys (w log2
+    # w compares for the w writes of a key)
     succ_bytes = 6 * 4 * e
+    is_write = (es >= 4) & (es <= 6) & (er >= 0) \
+        & (((WRITE_KIND_MASK >> ekd) & 1) == 1)
+    per_key = torch.bincount(ek[is_write].long()).double()
+    succ_ops = 6 * e + int((per_key * torch.log2(per_key.clamp(min=1)))
+                           .ceil().sum())
+    k6_bound, k6_by = bound(succ_bytes, succ_ops)
+    # the step (K3): the sum of its four steps' byte bounds, each counting
+    # its own inputs read once and outputs written once: succ_w as above,
+    # the graph reads three int32 [B] vectors and touches and writes the
+    # B*B graph
     graph_bytes = 3 * 4 * b + b * k + b * b
     step_bound = (succ_bytes + k1_bytes + graph_bytes + k2_bytes) \
         / PEAK_BYTES_PER_S * 1e3
@@ -1081,13 +1148,23 @@ def main() -> int:
         f"bound {k2_bound:.6f} ms by {k2_by}); phase 3's B = 512 random "
         f"DAG: forward pass with its ranks {k2_dag_forward_ms:.4f} ms, "
         f"fixpoint without them {k2_dag_fixpoint_ms:.4f} ms")
-    log(f"[time] plain torch in the step: succ_w {succ_ms:.4f} ms, "
-        f"in_batch_graph {graph_ms:.4f} ms")
-    log(f"[time] resolve_step {step_ms:.4f} ms for {edges} edges: "
+    log(f"[time] K6 succ_w  {k6_ms:.4f} ms (plain {succ_plain_ms:.4f} ms, "
+        f"bound {k6_bound:.6f} ms by {k6_by}: {succ_bytes} bytes = 6 x 4 x "
+        f"E, {succ_ops} operations, {int(is_write.sum())} committed writes "
+        f"over {int((per_key > 0).sum())} keys, the hottest key "
+        f"{int(per_key.max())}); apart: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in k6_steps.items()))
+    parts = {"K6 succ_w": k6_ms, "K1": k1_ms, "graph (f32 matmul)": graph_ms,
+             "K2": k2_ms}
+    log(f"[time] resolve_step {step_ms:.4f} ms for {edges} edges "
+        f"(plain versions on the card {step_plain_ms:.4f} ms): "
         f"{edges / (step_ms / 1e3):.1f} edges/s on the card; scalar host "
-        f"scan {scalar_eps:.1f} edges/s; the step's bound {step_bound:.6f} "
-        f"ms by bytes (succ_w {succ_bytes}, K1 {k1_bytes}, graph "
-        f"{graph_bytes}, K2 {k2_bytes} bytes)")
+        f"scan {scalar_eps:.1f} edges/s; split "
+        + ", ".join(f"{k} {v:.4f} ms ({v / step_ms:.0%})"
+                    for k, v in parts.items())
+        + f", the parts' sum {sum(parts.values()):.4f} ms; the step's bound "
+        f"{step_bound:.6f} ms by bytes (succ_w {succ_bytes}, K1 {k1_bytes}, "
+        f"graph {graph_bytes}, K2 {k2_bytes} bytes)")
 
     log(f"[phase] 6 starts at {time.perf_counter() - t_script:.1f} s")
     # ---- 6. K4 == plain == oracle
@@ -1462,8 +1539,9 @@ def main() -> int:
     torch.cuda.synchronize()
     sh_launches = {k.name: k.launches for k in ck.KERNELS}
     check(sh_launches == {"deps_tile": 1, "wavefront": 1,
-                          "keyset_windows": 0, "range_stab": 0},
-          f"the sharded step was not one K1 and one K2 launch: {sh_launches}")
+                          "keyset_windows": 0, "range_stab": 0, "succ_w": 1},
+          f"the sharded step was not one K6, one K1 and one K2 launch: "
+          f"{sh_launches}")
     check(sh_enc.decode_deps(sh_mask.cpu().numpy()) == oracle,
           "sharded deps != scalar oracle")
     sh_edges = int(sh_count.sum())
@@ -1473,8 +1551,12 @@ def main() -> int:
           and torch.equal(sh_waves[:n], waves[:n]),
           "sharded graph or waves != resolve_step's")
     er_s, eer_s, ek_s, es_s, ekd_s, tr_s, twm_s, _, touches_s = sh_args
-    succ_s = deps_kernel.sharded_successor_write_eat(er_s, eer_s, ek_s, es_s,
-                                                     ekd_s, sh_enc.ks)
+    succ_s = ck.successor_write_eat_cuda(er_s, eer_s, ek_s, es_s, ekd_s,
+                                         sh_enc.ks)
+    err["succ_w"] = max(err["succ_w"], max_abs_err(
+        succ_s, deps_kernel.sharded_successor_write_eat(
+            er_s, eer_s, ek_s, es_s, ekd_s, sh_enc.ks)))
+    check(err["succ_w"] == 0, "stacked K6 != the plain sharded succ_w")
     k1s_args = {}
     for cut in (0, 8):
         k1s_args[cut] = (touches_s,) + tuple(
@@ -1496,7 +1578,8 @@ def main() -> int:
         f"{sh_edges} == {DEFAULT_EDGES}; graph and waves == resolve_step's; "
         f"stacked K1 == its per-shard plain loop at E_shard {e_shard} "
         f"({e_shard % 16} mod 16) and {e_shard - 8} ({(e_shard - 8) % 16} mod "
-        f"16); S = 1 == resolve_step")
+        f"16); stacked K6 == the plain sharded succ_w; S = 1 == "
+        f"resolve_step")
 
     probes = [(tid, tid.kind.witnesses(), keys) for tid, keys in batch]
     t0 = time.perf_counter()
@@ -1510,8 +1593,9 @@ def main() -> int:
     torch.cuda.synchronize()
     pr_launches = {k.name: k.launches for k in ck.KERNELS}
     check(pr_launches == {"deps_tile": 1, "wavefront": 0,
-                          "keyset_windows": 0, "range_stab": 0},
-          f"the sharded deps step was not one K1 launch: {pr_launches}")
+                          "keyset_windows": 0, "range_stab": 0, "succ_w": 1},
+          f"the sharded deps step was not one K6 and one K1 launch: "
+          f"{pr_launches}")
     flat_pr = BatchEncoder.for_probes(cfks, probes)
     flat_pr_out = resolve_step(*window_to_tensors(flat_pr.state,
                                                   flat_pr.dbatch, dev))
@@ -1523,8 +1607,10 @@ def main() -> int:
         f"{pr_launches}; {int(pr_count.sum())} probe edges; decode_key_deps "
         f"== BatchEncoder.for_probes's through resolve_step on all "
         f"{len(probes)} probes")
+    t0 = time.perf_counter()
     dry = dryrun_multichip(n_shards)
-    log(f"[sharded] dryrun_multichip({n_shards}) on the card: {dry}")
+    log(f"[sharded] dryrun_multichip({n_shards}) on the card, with its "
+        f"protocol leg: {dry}; {time.perf_counter() - t0:.1f} s")
 
     # the steps one call a batch, as the default lane times resolve_step:
     # ten calls' host work would outlast the sleep that hides it
@@ -1535,6 +1621,10 @@ def main() -> int:
     k1s_ms = {cut: median_ms(lambda a=a: ck.deps_tile_cuda(*a), reps=15,
                              per_batch=10) for cut, a in k1s_args.items()}
     k1s_memset_ms = median_ms(lambda: sh_mask.zero_(), reps=15, per_batch=10)
+    k6s_ms = median_ms(lambda: ck.successor_write_eat_cuda(
+        er_s, eer_s, ek_s, es_s, ekd_s, sh_enc.ks), reps=15, per_batch=10)
+    k6s_plain_ms = median_ms(lambda: deps_kernel.sharded_successor_write_eat(
+        er_s, eer_s, ek_s, es_s, ekd_s, sh_enc.ks), reps=7)
     deps_step_ms = median_ms(lambda: deps_step(*pr_deps_args), reps=15)
     # K1 on the stack moves each input once (touches B*S*Ks bytes, six int32
     # [S, E_shard] arrays, two int32 [B]) and writes the S*B*E_shard mask and
@@ -1560,6 +1650,10 @@ def main() -> int:
                     for cut in k1s_args)
         + f"; a memset of the [S, B, E_shard] mask {k1s_memset_ms:.4f} ms; "
         f"flat K1 {k1_ms:.4f} ms; padding factor {pad_factor:.4f}")
+    log(f"[time] K6 stacked S = {n_shards}, E_shard {e_shard}: "
+        f"{k6s_ms:.4f} ms (plain {k6s_plain_ms:.4f} ms, byte bound "
+        f"{6 * 4 * n_shards * e_shard / PEAK_BYTES_PER_S * 1e3:.6f} ms); "
+        f"flat K6 {k6_ms:.4f} ms")
 
     log(f"[phase] 13 starts at {time.perf_counter() - t_script:.1f} s")
     # ---- 13. the protocol store tier
@@ -1646,7 +1740,8 @@ def main() -> int:
     store_log(pa)
     check(outcomes(pa) == [("preaccept", "SUCCESS")],
           f"PreAccept window outcomes {outcomes(pa)}")
-    check(only(pa, deps_tile=1), f"PreAccept window launches {pa.launches}")
+    check(only(pa, deps_tile=1, succ_w=1),
+          f"PreAccept window launches {pa.launches}")
     # the version gate serves exactly the window's first-touch preaccepts
     # (tests/test_torch_store.py holds the JAX store to the same split)
     pa_hits = first_touch_preaccepts(sb.plan, sb.windows["preaccept"])
@@ -1659,7 +1754,7 @@ def main() -> int:
     store_log(pa_mesh, f"; the mesh store, S = {n_shards}")
     check(pa_mesh.results == pa.results,
           "the mesh store's PreAccept window != the flat store's")
-    check(only(pa_mesh, deps_tile=1),
+    check(only(pa_mesh, deps_tile=1, succ_w=1),
           f"mesh PreAccept window launches {pa_mesh.launches}")
     check(pa_mesh.counters == pa.counters,
           f"mesh counters {pa_mesh.counters} != flat {pa.counters}")
@@ -1672,7 +1767,8 @@ def main() -> int:
     check(rec.counters["device_recovery_hits"] > 0
           and rec.counters["device_recovery_misses"] == 0,
           f"recovery window {rec.counters}")
-    check(only(rec, deps_tile=1), f"recovery window launches {rec.launches}")
+    check(only(rec, deps_tile=1, succ_w=1),
+          f"recovery window launches {rec.launches}")
 
     com = sb.run("commit")
     store_log(com)
@@ -1705,7 +1801,8 @@ def main() -> int:
     check(rng_w.counters["device_range_batches"] == 1
           and rng_w.counters["device_range_hits"] > 0,
           f"range window {rng_w.counters}")
-    check(only(rng_w, deps_tile=1), f"range window launches {rng_w.launches}")
+    check(only(rng_w, deps_tile=1, succ_w=1),
+          f"range window launches {rng_w.launches}")
     for r in sb.runners():
         check(not r.store.device_disabled and not r.node.agent.failures,
               "a store failed or disabled its device tier")
@@ -1802,10 +1899,12 @@ def main() -> int:
         make device_batches; K2 once a wave batch."""
         other = "sharded_kernel" if lap == "deps_kernel" else "deps_kernel"
         k1_flushes = laps.get(lap, (0, 0))[0]
-        check(launched["deps_tile"] == k1_flushes > 0 and other not in laps
+        check(launched["deps_tile"] == launched["succ_w"] == k1_flushes > 0
+              and other not in laps
               and k1_flushes + laps.get("recovery_kernel", (0, 0))[0]
               == summed["device_batches"],
-              f"{name} K1 launches {launched['deps_tile']}, laps {laps}, "
+              f"{name} K1 launches {launched['deps_tile']}, K6 "
+              f"{launched['succ_w']}, laps {laps}, "
               f"{summed}")
         check(launched["wavefront"] == summed["device_wave_batches"]
               == waves, f"{name} K2 launches {launched['wavefront']}, "
@@ -1891,6 +1990,12 @@ def main() -> int:
          "max_abs_err": err["range_stab"],
          "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound,
          "bound_by": k5_by, "library_ms": None},
+        {"name": "succ_w", "route": "cuda",
+         "source": "accord_tpu_torch/csrc/succ_w.cu",
+         "replaces": "accord_tpu/ops/deps_kernel.py:53",
+         "launches": launches["succ_w"], "max_abs_err": err["succ_w"],
+         "ms": k6_ms, "plain_ms": succ_plain_ms, "bound_ms": k6_bound,
+         "bound_by": k6_by, "library_ms": None},
     ]
     log(f"[phase] all done at {time.perf_counter() - t_script:.1f} s")
     print(card_name_and_power_limit())

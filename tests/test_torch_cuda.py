@@ -20,13 +20,15 @@ from accord_tpu_torch.ops.encode import BatchEncoder, window_to_tensors
 from accord_tpu_torch.ops.recovery_kernel import (RecoveryEncoder,
                                                   batched_recovery_scans,
                                                   scalar_predicates)
-from accord_tpu_torch.ops.sharded import ShardedEncoder, make_sharded_step
+from accord_tpu_torch.ops.sharded import (ShardedEncoder, make_sharded_step,
+                                          resolve_step)
 from accord_tpu_torch.tpcc import window_oracle
 from accord_tpu_torch.utils.random_source import RandomSource
-from accord_tpu_torch.workload import (build_world, keyset_cases,
-                                       large_keyset_window, random_world,
-                                       range_cases, range_index_cases,
-                                       recovery_world)
+from accord_tpu_torch.workload import (SUCC_W_CASES, build_world,
+                                       keyset_cases, large_keyset_window,
+                                       random_world, range_cases,
+                                       range_index_cases, recovery_world,
+                                       succ_w_case)
 
 # slow too: these skip wherever there is no card, so they stay out of the
 # tier-1 run's budget of unmarked tests; on the card the file runs with no
@@ -124,10 +126,95 @@ def test_deps_tile_kernel_stacked_matches_plain(card, n_shards):
         assert not er[5:].ge(0).any()             # the empty shards
     cuda_kernels.reset_launch_counts()
     got = make_sharded_step(n_shards)(*args)
-    assert [k.launches for k in cuda_kernels.KERNELS] == [1, 1, 0, 0]
+    assert [k.launches for k in cuda_kernels.KERNELS] == [1, 1, 0, 0, 1]
     for g, w in zip(got, make_sharded_step(n_shards)(
             *(a.cpu() for a in args))):
         assert torch.equal(g.cpu(), w)
+
+
+def _succ_w_vs_plain(arrays, n_keys):
+    """K6 on the five entry arrays (CUDA tensors, flat or stacked) == the
+    plain succ_w on the same tensors, in one launch."""
+    before = cuda_kernels.SUCC_W.launches
+    got = cuda_kernels.successor_write_eat_cuda(*arrays, n_keys)
+    assert cuda_kernels.SUCC_W.launches == before + 1
+    want = deps_kernel.sharded_successor_write_eat(*arrays, n_keys) \
+        if arrays[0].dim() == 2 else deps_kernel.successor_write_eat(*arrays)
+    assert got.dtype == torch.int32 and got.shape == arrays[0].shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", SUCC_W_CASES)
+def test_succ_w_kernel_cases(card, name):
+    """K6 == plain on the windows where it can go wrong, at phase 4's
+    E = 128,768 flat and in 8 stacked shards of 16,096 (one hot key holds
+    every entry: its writes span chunks and are merged), and at E = 512."""
+    for n_shards, e in ((0, 128_768), (8, 16_096), (0, 512), (8, 512)):
+        arrays, n_keys = succ_w_case(name, e, n_shards)
+        _succ_w_vs_plain(tuple(torch.from_numpy(a).to(card)
+                               for a in arrays), n_keys)
+
+
+def test_succ_w_kernel_keys_out_of_range(card):
+    """Keys below 0 and past the block, kinds outside 0..31, more keys than
+    entries and no keys at all: the buckets fold, the answer is the plain
+    version's (which, stacked, offsets such keys into other shards' blocks
+    in wrapping int32, as K6 does)."""
+    rng = np.random.default_rng(11)
+    for n_shards, e, n_keys in ((0, 3000, 5), (4, 700, 3), (3, 500, 0),
+                                (0, 100, 5000), (2, 64, 2 ** 30 - 1)):
+        shape = (n_shards, e) if n_shards else (e,)
+        arrays = (rng.integers(-1, 9, shape), rng.integers(-3, 50, shape),
+                  rng.integers(-6, 9, shape), rng.integers(0, 8, shape),
+                  rng.integers(-2, 40, shape))
+        _succ_w_vs_plain(tuple(torch.from_numpy(a.astype(np.int32)).to(card)
+                               for a in arrays), n_keys)
+
+
+def test_succ_w_kernel_on_encoded_windows(card):
+    """K6 == plain on encoded windows, flat and in the sharded key-block
+    layout at S = 8 (as the mesh store encodes them)."""
+    cfks, batch = build_world(n_keys=1024, n_existing=8000, n_batch=256,
+                              seed=9)
+    enc = BatchEncoder(cfks, batch)
+    args = window_to_tensors(enc.state, enc.dbatch, card)
+    _succ_w_vs_plain(args[:5], args[8].shape[1])
+    sh = ShardedEncoder(cfks, batch, 8)
+    _succ_w_vs_plain(window_to_tensors(sh.args(), device=card)[:5], sh.ks)
+
+
+def test_deps_on_card_never_reach_the_plain_succ_w(card, monkeypatch):
+    """On CUDA tensors the deps step, resolve_step and the sharded step
+    take succ_w from K6 alone: with the plain succ_w made to raise, each
+    still runs, launches K6 once a K1 launch, and == the CPU's results
+    (taken before the patch)."""
+    cfks, batch = random_world(RandomSource(860), n_keys=30, n_existing=300,
+                               n_batch=150)
+    enc = BatchEncoder(cfks, batch)
+    flat = window_to_tensors(enc.state, enc.dbatch, card)
+    sh_enc = ShardedEncoder(cfks, batch, 8)
+    stacked = window_to_tensors(sh_enc.args(), device=card)
+    step = make_sharded_step(8)
+    want_flat = resolve_step(*(a.cpu() for a in flat))
+    want_stacked = step(*(a.cpu() for a in stacked))
+
+    def plain(*_a, **_k):
+        raise AssertionError("the plain succ_w ran on the card's path")
+
+    for fn in ("_successor_write_eat", "successor_write_eat",
+               "sharded_successor_write_eat"):
+        monkeypatch.setattr(deps_kernel, fn, plain)
+    cuda_kernels.reset_launch_counts()
+    deps = cuda_kernels.batched_active_deps_cuda(*flat[:7], flat[8])
+    got_flat = resolve_step(*flat)
+    got_stacked = step(*stacked)
+    assert cuda_kernels.SUCC_W.launches == cuda_kernels.DEPS_TILE.launches \
+        == 3
+    for g, w in zip(deps, want_flat[:2]):
+        assert torch.equal(g.cpu(), w)
+    for got, want in ((got_flat, want_flat), (got_stacked, want_stacked)):
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
 
 
 def _random_dag(rng, n, p):
@@ -214,7 +301,7 @@ def test_resolve_step_on_card_matches_cpu(card):
     assert all(a.device.type == "cuda" for a in args)
     cuda_kernels.reset_launch_counts()
     got = fn(*args)
-    assert [k.launches for k in cuda_kernels.KERNELS] == [1, 1, 0, 0]
+    assert [k.launches for k in cuda_kernels.KERNELS] == [1, 1, 0, 0, 1]
     for g, w in zip(got, fn(*(a.cpu() for a in args))):
         assert torch.equal(g.cpu(), w)
 

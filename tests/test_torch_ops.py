@@ -18,9 +18,12 @@ from accord_tpu.ops import batched_active_deps as jax_batched_active_deps
 from accord_tpu.ops import execution_waves as jax_execution_waves
 from accord_tpu.ops import in_batch_graph as jax_in_batch_graph
 from accord_tpu.ops import waves_oracle as jax_waves_oracle
+from accord_tpu.ops import deps_kernel as jax_deps
 from accord_tpu.ops.deps_kernel import _successor_write_eat as jax_successor
+from accord_tpu.ops.encode import WRITE_KIND_MASK as JAX_WRITE_KIND_MASK
 from accord_tpu.utils.random_source import RandomSource as JaxRandom
 from accord_tpu_torch.ops import cuda_kernels, deps_kernel, wavefront
+from accord_tpu_torch.workload import SUCC_W_CASES, succ_w_case
 from tests.test_ops import random_world as jax_random_world
 
 
@@ -74,6 +77,45 @@ def test_successor_write_eat_matches_jax(seed):
     want = np.asarray(jax.jit(jax_successor)(key, eat, write_eat))
     assert got.dtype == torch.int32
     assert np.array_equal(got.numpy(), want)
+
+
+def _jax_succ_w(rank, eat, key, status, kind):
+    """The JAX package's succ_w of one shard: its committed-write filter
+    (accord_tpu/ops/deps_kernel.py::batched_active_deps) and its segmented
+    suffix-min scan."""
+    committed = (status >= jax_deps._COMMITTED) \
+        & (status <= jax_deps._APPLIED) & (rank >= 0)
+    is_write = ((JAX_WRITE_KIND_MASK >> kind) & 1) == 1
+    write_eat = np.where(committed & is_write, eat,
+                         np.iinfo(np.int32).max).astype(np.int32)
+    return np.asarray(jax.jit(jax_successor)(key, eat, write_eat))
+
+
+@pytest.mark.parametrize("name", SUCC_W_CASES)
+def test_successor_write_eat_cases_match_jax(name):
+    """The plain succ_w, flat and stacked (S = 8, keys local to each shard),
+    == the JAX package's (each shard's on its own, as each device of its
+    mesh computes it) on the windows where K6 can go wrong
+    (``workload.succ_w_case``: one hot key, all writes, no writes, equal
+    eats, a single entry, pads alone, the encoder's key blocks);
+    ``successor_write_eat_cuda`` on CPU tensors is the plain version and
+    launches nothing."""
+    cuda_kernels.reset_launch_counts()
+    for n_shards in (0, 8):
+        arrays, n_keys = succ_w_case(name, n_shards=n_shards)
+        t = tuple(map(_t, arrays))
+        if n_shards:
+            want = np.stack([_jax_succ_w(*(a[s] for a in arrays))
+                             for s in range(n_shards)])
+            got = deps_kernel.sharded_successor_write_eat(*t, n_keys)
+        else:
+            want = _jax_succ_w(*arrays)
+            got = deps_kernel.successor_write_eat(*t)
+        assert got.dtype == torch.int32
+        assert np.array_equal(got.numpy(), want), n_shards
+        assert torch.equal(
+            cuda_kernels.successor_write_eat_cuda(*t, n_keys), got)
+    assert cuda_kernels.SUCC_W.launches == 0
 
 
 def test_batched_active_deps_large_k_matches_jax():
@@ -165,7 +207,7 @@ def test_wrappers_take_plain_versions_on_cpu():
     dep = _t(_random_dag(np.random.default_rng(9), 64, 0.1))
     assert torch.equal(cuda_kernels.execution_waves_cuda(dep),
                        wavefront.execution_waves(dep))
-    assert [k.launches for k in cuda_kernels.KERNELS] == [0, 0, 0, 0]
+    assert [k.launches for k in cuda_kernels.KERNELS] == [0, 0, 0, 0, 0]
 
 
 def test_wrappers_refuse_mixed_devices():

@@ -173,9 +173,21 @@ def test_shards_sharing_local_keys_keep_their_own_successors():
 
 
 def test_dryrun_multichip_on_cpu():
-    out = port_entry.dryrun_multichip(8, device="cpu")
+    """The dry run's sharded-step leg (its protocol leg, a burn of ~30 s
+    here, runs in the slow test below)."""
+    out = port_entry.dryrun_sharded_step(8, device="cpu")
     assert out["n_shards"] == 8 and out["device"] == "cpu"
     assert out["edges"] > 0 and out["max_wave"] >= 0
+
+
+@pytest.mark.slow
+def test_dryrun_multichip_protocol_leg_on_cpu():
+    """Both legs of the dry run, as the JAX ``dryrun_multichip`` runs them:
+    after the sharded step, the hostile verify=True burn served by the mesh
+    store at S = 8, with no op lost or pending, acks and device hits."""
+    out = port_entry.dryrun_multichip(8, device="cpu")
+    assert out["n_shards"] == 8 and out["edges"] > 0
+    assert out["protocol_acks"] > 0 and out["protocol_device_hits"] > 0
 
 
 def test_sharded_step_rejects_what_the_layout_forbids():
