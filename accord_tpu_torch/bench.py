@@ -128,7 +128,7 @@ from accord_tpu_torch.ops.encode import BatchEncoder, window_to_tensors
 from accord_tpu_torch.ops.range_kernel import stab_counts_chunked
 from accord_tpu_torch.ops.sharded import resolve_step
 from accord_tpu_torch.utils.backend import (card_name_and_power_limit,
-                                            resolve_device)
+                                            resolve_device, resolve_spread)
 from accord_tpu_torch.utils.timing import event_times_ms, median_ms
 from accord_tpu_torch.workload import (DEFAULT_STORE_WINDOW, StoreNode,
                                        StorePlanRunner, build_world,
@@ -336,24 +336,30 @@ class StoreBench:
     device: ``workload.default_store_plan`` (`n_history` txns in flush
     windows of 512) and ``default_store_windows`` after it, through a
     flat ``DeviceCommandStore`` and, when `n_shards` is non-zero, a
-    ``MeshDeviceCommandStore`` over that many stacked shards, fed the same
-    windows in lockstep.  The history runs with ``verify=False`` but for
-    its last VERIFY_LAST windows; every measured window runs with
-    ``verify=True``."""
+    ``MeshDeviceCommandStore`` over that many shards, fed the same
+    windows in lockstep: stacked on `device`, or with `devices` (a list,
+    or "all") spread over those cards, devices[0] being `device`.  The
+    history runs with ``verify=False`` but for its last VERIFY_LAST
+    windows; every measured window runs with ``verify=True``."""
 
     SPAN = (0, 1 << 20)
     VERIFY_LAST = 8
 
     def __init__(self, n_history: int = 16384, device=None,
-                 n_shards: int = 8):
-        self.device = resolve_device(device)
+                 n_shards: int = 8, devices=None):
+        self.device, self.devices = resolve_spread(device, devices)
         self.plan = default_store_plan(n_history=n_history)
         self.windows = default_store_windows(self.plan)
         self.window = DEFAULT_STORE_WINDOW
         self.flat = self._runner(DeviceCommandStore.factory(
             device=self.device))
         self.mesh = self._runner(MeshDeviceCommandStore.factory(
-            n_shards=n_shards, device=self.device)) if n_shards else None
+            n_shards=n_shards, device=self.device,
+            devices=self.devices)) if n_shards else None
+
+    def _sync(self) -> None:
+        for dev in self.devices or [self.device]:
+            torch.cuda.synchronize(dev)
 
     def _runner(self, factory) -> StorePlanRunner:
         node = StoreNode()
@@ -408,13 +414,13 @@ class StoreBench:
         before = device_counters(store)
         cuda = self.device.type == "cuda"
         if cuda:
-            torch.cuda.synchronize(self.device)
+            self._sync()
         cuda_kernels.reset_launch_counts()
         t0 = time.perf_counter()
         results = runner.run_window(self.windows[name] if ops is None
                                     else ops)
         if cuda:
-            torch.cuda.synchronize(self.device)
+            self._sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
         launches = {k.name: k.launches for k in cuda_kernels.KERNELS}
         after = device_counters(store)

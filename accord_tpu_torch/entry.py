@@ -18,12 +18,12 @@ from accord_tpu_torch.impl.device_store import MeshDeviceCommandStore
 from accord_tpu_torch.local.cfk import CommandsForKey, InternalStatus
 from accord_tpu_torch.ops.encode import (BatchEncoder, scalar_deps_oracle,
                                          window_to_tensors)
-from accord_tpu_torch.ops.sharded import (ShardedEncoder, make_sharded_step,
-                                          resolve_step)
+from accord_tpu_torch.ops.sharded import (ShardedEncoder, dep_mask_to_host,
+                                          make_sharded_step, resolve_step)
 from accord_tpu_torch.primitives.keys import Key
 from accord_tpu_torch.primitives.timestamp import Domain, TxnId, TxnKind
 from accord_tpu_torch.sim.burn import BurnRun
-from accord_tpu_torch.utils.backend import resolve_device
+from accord_tpu_torch.utils.backend import resolve_device, resolve_spread
 from accord_tpu_torch.utils.random_source import RandomSource
 
 
@@ -59,14 +59,16 @@ def entry(device=None):
     return resolve_step, window_to_tensors(enc.state, enc.dbatch, dev)
 
 
-def dryrun_multichip(n_shards: int, device=None) -> dict:
+def dryrun_multichip(n_shards: int, device=None, devices=None) -> dict:
     """The JAX dry run's two legs on `device` (``__graft_entry__.py:
     dryrun_multichip``): the sharded step (``dryrun_sharded_step``), then
     its protocol leg (``dryrun_protocol_leg``).  Raises AssertionError on
     any difference; -> the two summaries in one dict.  `device` None means
-    the CUDA card; "cpu" runs the plain versions."""
-    out = dryrun_sharded_step(n_shards, device)
-    out.update(dryrun_protocol_leg(n_shards, device))
+    the CUDA card; "cpu" runs the plain versions.  With `devices` (a list,
+    or "all": ``utils.backend.resolve_devices``) both legs spread the
+    shards over those devices, devices[0] standing for `device`."""
+    out = dryrun_sharded_step(n_shards, device, devices)
+    out.update(dryrun_protocol_leg(n_shards, device, devices))
     return out
 
 
@@ -76,20 +78,25 @@ def _check(what: str, checks: dict) -> None:
         raise AssertionError(f"{what}: {', '.join(failed)}")
 
 
-def dryrun_sharded_step(n_shards: int, device=None) -> dict:
+def dryrun_sharded_step(n_shards: int, device=None, devices=None) -> dict:
     """The sharded resolve step over `n_shards` key blocks, stacked on one
-    device, on a small example window (4 keys a shard, 64 txns, a window of
-    16), checked element for element: every wave >= 0, the decoded deps ==
-    the scalar oracle, and the in-window graph and the waves == the
-    single-device ``resolve_step`` on the flat encoding.  -> a summary."""
-    dev = resolve_device(device)
+    device or spread over `devices`, on a small example window (4 keys a
+    shard, 64 txns, a window of 16), checked element for element: every
+    wave >= 0, the decoded deps == the scalar oracle, and the in-window
+    graph and the waves == the single-device ``resolve_step`` on the flat
+    encoding.  -> a summary."""
+    dev, devices = resolve_spread(device, devices)
     cfks, batch = _example(n_keys=4 * n_shards, n_existing=64, n_batch=16)
     enc = ShardedEncoder(cfks, batch, n_shards)
-    dep_mask, dep_count, dep_bb, waves = make_sharded_step(n_shards)(
-        *window_to_tensors(enc.args(), device=dev))
+    step = make_sharded_step(n_shards, devices=devices)
+    if devices is None:
+        out = step(*window_to_tensors(enc.args(), device=dev))
+    else:
+        out = step(*enc.args())
+    dep_mask, dep_count, dep_bb, waves = out
     n = len(batch)
     waves = waves[:n].cpu()
-    mask = dep_mask.cpu().numpy()
+    mask = dep_mask_to_host(dep_mask)
     checks = {
         "every txn has a wave": bool((waves >= 0).all()),
         "deps == the scalar oracle":
@@ -106,12 +113,15 @@ def dryrun_sharded_step(n_shards: int, device=None) -> dict:
     checks["waves == resolve_step's"] = bool(
         (waves == waves1[:n].cpu()).all())
     _check(f"dryrun_multichip({n_shards}) on {dev}", checks)
-    return {"n_shards": n_shards, "device": str(dev),
-            "edges": int(dep_count[:n].sum()), "max_wave": int(waves.max()),
-            "es": int(mask.shape[2]), "ks": enc.ks}
+    out = {"n_shards": n_shards, "device": str(dev),
+           "edges": int(dep_count[:n].sum()), "max_wave": int(waves.max()),
+           "es": int(mask.shape[2]), "ks": enc.ks}
+    if devices is not None:
+        out["devices"] = [str(d) for d in devices]
+    return out
 
 
-def dryrun_protocol_leg(n_shards: int, device=None) -> dict:
+def dryrun_protocol_leg(n_shards: int, device=None, devices=None) -> dict:
     """The protocol leg of the JAX dry run (``__graft_entry__.py:131-162``):
     a hostile burn (seed 61, 60 ops, 3 nodes, 6 keys, 10% message loss,
     partitions, 2 command stores a node) whose deps scans are served by
@@ -119,16 +129,16 @@ def dryrun_protocol_leg(n_shards: int, device=None) -> dict:
     served scan checked inline against the scalar scan (``verify=True``) and
     the history checked by the burn's verifiers; then no op lost or
     pending, acks, and device hits.  The JAX leg also checks that each
-    store has a mesh; the port's mesh store always stacks its shards on one
-    device, so the check here is that every store is a
-    ``MeshDeviceCommandStore``.  -> {"protocol_acks": the burn's acks,
-    "protocol_device_hits": its stores' device hits}."""
-    dev = resolve_device(device)
+    store has a mesh (``s.mesh is not None``); here every store must be a
+    ``MeshDeviceCommandStore`` and, with `devices`, span all of them.
+    -> {"protocol_acks": the burn's acks, "protocol_device_hits": its
+    stores' device hits}."""
+    dev, devices = resolve_spread(device, devices)
     run = BurnRun(61, 60, nodes=3, keys=6, drop_prob=0.10, partitions=True,
                   num_command_stores=2,
                   store_factory=MeshDeviceCommandStore.factory(
                       n_shards=n_shards, flush_window_us=300, verify=True,
-                      device=dev))
+                      device=dev, devices=devices))
     stats = run.run()
     stores = [s for node in run.cluster.nodes.values()
               for s in node.command_stores.all()]
@@ -138,5 +148,7 @@ def dryrun_protocol_leg(n_shards: int, device=None) -> dict:
         "acks": stats.acks > 0,
         "mesh-served scans": hits > 0,
         "every store a MeshDeviceCommandStore": all(
-            isinstance(s, MeshDeviceCommandStore) for s in stores)})
+            isinstance(s, MeshDeviceCommandStore) for s in stores),
+        "every store spans the devices": all(
+            s.devices == devices for s in stores)})
     return {"protocol_acks": stats.acks, "protocol_device_hits": hits}

@@ -64,12 +64,13 @@ from accord_tpu_torch.ops.encode import (PAD, BatchEncoder, _pad_to,
 from accord_tpu_torch.ops.range_kernel import range_stab_mask
 from accord_tpu_torch.ops.recovery_kernel import (RecoveryEncoder,
                                                   batched_recovery_scans)
-from accord_tpu_torch.ops.sharded import (ShardedEncoder,
-                                          make_sharded_deps_step)
+from accord_tpu_torch.ops.sharded import (ShardedEncoder, dep_mask_to_host,
+                                          make_sharded_deps_step,
+                                          shard_to_devices)
 from accord_tpu_torch.ops.wavefront import waves_oracle
 from accord_tpu_torch.primitives.keys import Key, Ranges
 from accord_tpu_torch.primitives.timestamp import KindSet, Timestamp, TxnId
-from accord_tpu_torch.utils.backend import resolve_device
+from accord_tpu_torch.utils.backend import resolve_device, resolve_spread
 
 _INT32 = np.iinfo(np.int32)
 
@@ -1025,32 +1026,41 @@ class MeshDeviceCommandStore(DeviceCommandStore):
     """DeviceCommandStore whose batched deps precompute runs the sharded
     deps step (ops/sharded.make_sharded_deps_step: per-shard deps masks over
     key-range blocks with the counts summed — the layout of the reference's
-    CommandStores shard fan-out, CommandStores.java:78).  The port stacks
-    the S shards on the store's device: on the card one K1 launch pair a
-    window for all S, on the CPU the plain version shard by shard.
+    CommandStores shard fan-out, CommandStores.java:78).  With `devices`
+    None the port stacks the S shards on the store's device: on the card
+    one K1 launch pair a window for all S, on the CPU the plain version
+    shard by shard.  With a list of D devices (or "all"), the counterpart
+    of the JAX store over a ``jax.sharding.Mesh`` of every visible device:
+    each window's arrays go from the host straight to the cards in blocks
+    of S/D shards, each card runs one K6 and one stacked K1 launch on its
+    block, NCCL sums the counts, and each card's mask plane comes straight
+    back to the host.  The store's own `device` is then devices[0], where
+    its recovery, range and wave arms run.
 
     The protocol semantics are identical to DeviceCommandStore — same
     probe declarations, same serving, same version gates, same inline
     verification — only the kernel executing the window's deps scans is
-    the sharded step.  The counterpart of the JAX store over a
-    ``jax.sharding.Mesh``; the form with one shard a rank of a
-    ``torch.distributed`` group is not ported yet."""
+    the sharded step.  The form with one shard a rank of a
+    ``torch.distributed`` group serves no store."""
 
     def __init__(self, store_id: int, node, ranges, *,
                  flush_window_us: int = 0, verify: bool = False,
-                 n_shards: int = 8, device=None):
+                 n_shards: int = 8, device=None, devices=None):
+        device, devices = resolve_spread(device, devices)
         super().__init__(store_id, node, ranges,
                          flush_window_us=flush_window_us, verify=verify,
                          device=device)
         self._mesh_shards = n_shards
-        self._sharded_step = make_sharded_deps_step(n_shards)
+        self.devices = devices
+        self._sharded_step = make_sharded_deps_step(n_shards,
+                                                    devices=devices)
 
     @classmethod
     def factory(cls, n_shards: int = 8, flush_window_us: int = 0,
-                verify: bool = False, device=None):
+                verify: bool = False, device=None, devices=None):
         return lambda i, node, ranges: cls(
             i, node, ranges, flush_window_us=flush_window_us, verify=verify,
-            n_shards=n_shards, device=device)
+            n_shards=n_shards, device=device, devices=devices)
 
     def _precompute(self, window) -> None:
         self._precomputed = {}
@@ -1065,13 +1075,21 @@ class MeshDeviceCommandStore(DeviceCommandStore):
         enc = ShardedEncoder.for_probes(cfks, probes,
                                         n_shards=self._mesh_shards, pad=PAD)
         args = enc.args()
-        tensors = window_to_tensors(args, device=self.device)
+        deps_args = args[:7] + args[8:]
+        if self.devices is None:
+            placed = window_to_tensors(args, device=self.device)
+            placed = placed[:7] + placed[8:]
+        else:
+            placed = shard_to_devices(deps_args, self._mesh_shards,
+                                      self.devices)
         t = self.profiler.lap(t, "sharded_encode", stage="encode")
         self._note_compile_shape(*(getattr(a, "shape", None)
                                    for a in args[:7]), kernel="sharded")
-        dep_mask, _count = self._sharded_step(
-            *tensors[:5], tensors[5], tensors[6], tensors[8])
-        mask_host = dep_mask.cpu().numpy()
+        if self.devices is None:
+            dep_mask, _count = self._sharded_step(*placed)
+        else:
+            dep_mask, _count = self._sharded_step.run(placed)
+        mask_host = dep_mask_to_host(dep_mask)
         t = self.profiler.lap(t, "sharded_kernel", stage="device")
         keyed = enc.decode_key_deps(mask_host)
         self.profiler.lap(t, "sharded_decode", stage="decode")

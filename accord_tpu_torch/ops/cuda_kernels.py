@@ -80,7 +80,8 @@ class Kernel:
     """One CUDA source built into one shared library, loaded at first use.
 
     `signatures` maps each exported C function to (argtypes, restype).
-    `launches` counts the launches its wrappers made."""
+    `launches` counts the launches its wrappers made, and `by_device`
+    the same launches by the index of the card they ran on."""
 
     def __init__(self, name: str, source: str,
                  signatures: Dict[str, Tuple[tuple, object]]):
@@ -88,6 +89,7 @@ class Kernel:
         self.source = CSRC / source
         self.signatures = signatures
         self.launches = 0
+        self.by_device: Dict[int, int] = {}
         self.build_log = ""
         self._lib: Optional[ctypes.CDLL] = None
 
@@ -133,6 +135,11 @@ class Kernel:
                 getattr(lib, fn).restype = restype
             self._lib = lib
         return self._lib
+
+    def count(self, dev: torch.device) -> None:
+        """One launch on card `dev`, made by a wrapper."""
+        self.launches += 1
+        self.by_device[dev.index] = self.by_device.get(dev.index, 0) + 1
 
     def check(self, code: int) -> None:
         if code != 0:
@@ -195,6 +202,7 @@ def build(kernels: Iterable[Kernel] = KERNELS,
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+        k.by_device = {}
 
 
 def _write_launch_counts(path: str) -> None:
@@ -291,7 +299,7 @@ def _deps_tile_launch(args, shape, packed, dep, count, phases):
             shape.e, packed.data_ptr(), dep.data_ptr(), count.data_ptr(),
             phases, stream)
     DEPS_TILE.check(code)
-    DEPS_TILE.launches += 1
+    DEPS_TILE.count(dep.device)
 
 
 def deps_tile_cuda(touches, entry_key, entry_rank, entry_eat_rank,
@@ -365,7 +373,7 @@ def _succ_w_launch(args, s, e, n_keys, scratch, succ, steps):
             entry_kind.data_ptr(), s, e, n_keys, WRITE_KIND_MASK,
             scratch.data_ptr(), succ.data_ptr(), steps, stream)
     SUCC_W.check(code)
-    SUCC_W.launches += 1
+    SUCC_W.count(succ.device)
 
 
 def _succ_w_scratch(dev, s, e, n_keys):
@@ -494,7 +502,7 @@ def execution_waves_cuda(dep_bb, txn_rank=None, stats=None):
             b, scratch.data_ptr() if words else None, wave.data_ptr(),
             None if stats is None else stats.data_ptr(), stream)
     WAVEFRONT.check(code)
-    WAVEFRONT.launches += 1
+    WAVEFRONT.count(dev)
     return wave
 
 
@@ -551,7 +559,7 @@ def keyset_windows_cuda(txn_keys, txn_rank, stats=None):
             scratch.data_ptr(), edges.data_ptr(), max_wave.data_ptr(),
             None if stats is None else stats.data_ptr(), stream)
     KEYSET_WINDOWS.check(code)
-    KEYSET_WINDOWS.launches += 1
+    KEYSET_WINDOWS.count(dev)
     return edges, max_wave
 
 
@@ -583,7 +591,7 @@ def _range_stab_launch(args, n, q, scratch, counts, phases):
             q_ends.data_ptr(), q, scratch.data_ptr(), counts.data_ptr(),
             phases, stream)
     RANGE_STAB.check(code)
-    RANGE_STAB.launches += 1
+    RANGE_STAB.count(counts.device)
 
 
 def _range_stab_buffers(dev, n, q):

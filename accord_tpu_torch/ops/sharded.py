@@ -20,8 +20,14 @@ The shard axis takes two forms here.  Stacked, on one device: the [S, ...]
 arrays go through one succ_w pass and ONE K1 launch pair for all S shards
 (the psum is K1's own sum into one count vector), and the graph is one f32
 product over all S*Ks key columns, which equals the sum of the per-shard
-products.  Distributed: with a ``torch.distributed`` group of S ranks, rank
-r computes shard r, and ``all_reduce(SUM)`` takes the place of the psums.
+products.  Across cards: with a list of D devices, one process drives
+every card, as the JAX store drives its mesh from one controller; card d
+holds the contiguous block of S/D shards d*S/D .. (d+1)*S/D - 1
+(``shard_to_devices``) and runs the stacked form on it, and an NCCL
+all-reduce over one tensor a card (``all_reduce_sum``) takes the place of
+the psums.  Distributed: with a ``torch.distributed`` group of S ranks,
+rank r computes shard r, and ``all_reduce(SUM)`` takes the place of the
+psums.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from accord_tpu_torch.ops.encode import (STATUS_INACTIVE, _pad_to,
                                          witness_mask)
 from accord_tpu_torch.primitives.keys import Key
 from accord_tpu_torch.primitives.timestamp import TxnId
+from accord_tpu_torch.utils.backend import resolve_devices
 
 
 def resolve_step(entry_rank, entry_eat_rank, entry_key, entry_status,
@@ -80,14 +87,130 @@ def _shard_deps(n_shards, group, entries, txn_rank, txn_witness_mask,
     return dep_mask, dep_count, touches
 
 
-def _check_group(n_shards: int, group) -> None:
+def _check_group(n_shards: int, group, devices) -> None:
+    if group is not None and devices is not None:
+        raise ValueError("a sharded step takes a group or a list of "
+                         "devices, not both")
     if group is not None and dist.get_world_size(group) != n_shards:
         raise ValueError(f"a sharded step over {n_shards} shards needs a "
                          f"group of {n_shards} ranks, got "
                          f"{dist.get_world_size(group)}")
 
 
-def make_sharded_step(n_shards: int, group=None):
+def _blocks(n_shards: int, devices) -> int:
+    """S/D, the shards of each device's block; D must divide S."""
+    if n_shards % len(devices):
+        raise ValueError(f"{n_shards} shards do not split evenly over "
+                         f"{len(devices)} devices")
+    return n_shards // len(devices)
+
+
+def shard_to_devices(args, n_shards: int, devices) -> List[tuple]:
+    """The stacked arguments of a sharded step (the nine of
+    ``ShardedEncoder.args()``, or the deps step's eight: entry arrays
+    [S, Es] first, touches [B, S*Ks] last, the txn arrays between; numpy
+    arrays or tensors on any device) -> one tuple of the same arguments a
+    device of `devices`: device d gets the entry rows and the touches'
+    columns of its contiguous block of S/D shards, and the txn arrays
+    whole.  Each block is copied from where it lies straight to its
+    device."""
+    devices = resolve_devices(devices)
+    per = _blocks(n_shards, devices)
+    arrays = [torch.from_numpy(np.ascontiguousarray(a))
+              if isinstance(a, np.ndarray) else a for a in args]
+    entries, txn, touches = arrays[:5], arrays[5:-1], arrays[-1]
+    if any(a.dim() != 2 or a.shape[0] != n_shards for a in entries):
+        raise ValueError(f"expected [S, E] entry arrays for {n_shards} "
+                         f"shards, got {[tuple(a.shape) for a in entries]}")
+    ks = shard_width(touches, n_shards)
+    placed = []
+    for d, dev in enumerate(devices):
+        lo, hi = d * per, (d + 1) * per
+        block = ([a[lo:hi] for a in entries] + txn
+                 + [touches[:, lo * ks:hi * ks]])
+        placed.append(tuple(a.contiguous().to(dev) for a in block))
+    return placed
+
+
+def all_reduce_sum(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Sum one tensor a device into every one of them, in place: the psum
+    of a step over several devices.  On CUDA tensors, one on each of
+    distinct cards, an NCCL all-reduce on each card's current stream (so
+    it follows the work queued there before it, and what is queued after
+    it follows the sum), with no host sync; a failure raises.  On CPU
+    tensors its plain version, ``torch.stack(tensors).sum(0)``.  ->
+    `tensors`."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        total = torch.stack(list(tensors)).sum(0, dtype=tensors[0].dtype)
+        for t in tensors:
+            t.copy_(total)
+        return list(tensors)
+    from torch.cuda import nccl
+    if kinds != {"cuda"} or not nccl.is_available(tensors):
+        raise RuntimeError(
+            f"an NCCL all-reduce needs one contiguous CUDA tensor on each of "
+            f"distinct cards in a torch built with NCCL, got "
+            f"{[str(t.device) for t in tensors]}")
+    nccl.all_reduce(list(tensors), streams=[
+        torch.cuda.current_stream(t.device) for t in tensors])
+    return list(tensors)
+
+
+def dep_mask_to_host(dep_mask) -> np.ndarray:
+    """A sharded step's dep_mask -> numpy [S, B, Es]: the stacked tensor
+    copied to the host, or, from a step over several devices, each
+    device's plane copied straight to the host and the planes joined in
+    shard order (``decode_deps`` and ``decode_key_deps`` read either)."""
+    if isinstance(dep_mask, torch.Tensor):
+        return dep_mask.cpu().numpy()
+    return np.concatenate([m.cpu().numpy() for m in dep_mask])
+
+
+class _DevicesStep:
+    """A sharded step over a list of devices (``make_sharded_step`` and
+    ``make_sharded_deps_step`` with `devices`): called on the stacked
+    arguments, it places them with ``shard_to_devices``; ``run`` takes
+    them placed already."""
+
+    def __init__(self, n_shards: int, devices, graph: bool):
+        self.devices = resolve_devices(devices)
+        self.n_shards = n_shards
+        self.per = _blocks(n_shards, self.devices)
+        self.graph = graph
+
+    def __call__(self, *args):
+        return self.run(shard_to_devices(args, self.n_shards, self.devices))
+
+    def run(self, placed):
+        """`placed`: ``shard_to_devices``'s tuples, one a device.  Every
+        device's launches are queued before any sum, so the cards run
+        together."""
+        if [a[0].device for a in placed] != self.devices:
+            raise ValueError(f"arguments placed on "
+                             f"{[str(a[0].device) for a in placed]}, the "
+                             f"step runs on {self.devices}")
+        masks, counts, shared = [], [], []
+        for args in placed:
+            mask, count, touches = _shard_deps(
+                self.per, None, args[:5], args[5], args[6], args[-1])
+            masks.append(mask)
+            counts.append(count)
+            if self.graph:
+                tf = touches.to(torch.float32)
+                shared.append(tf @ tf.T)
+        dep_count = all_reduce_sum(counts)[0]
+        if not self.graph:
+            return tuple(masks), dep_count
+        shared = all_reduce_sum(shared)[0]
+        txn_rank, txn_witness_mask, txn_kind = placed[0][5:8]
+        dep_bb = conflict_edges(shared > 0, txn_rank, txn_witness_mask,
+                                txn_kind)
+        return (tuple(masks), dep_count, dep_bb,
+                execution_waves_cuda(dep_bb, txn_rank))
+
+
+def make_sharded_step(n_shards: int, group=None, devices=None):
     """The sharded pipeline over `n_shards` key blocks: a callable of the
     nine arrays in ``ShardedEncoder.args()`` order (entry arrays [S, Es]
     with local keys, touches [B, S*Ks]) -> (dep_mask[S, B, Es] bool,
@@ -102,8 +225,20 @@ def make_sharded_step(n_shards: int, group=None):
     returns its own dep_mask[r][None]; ``all_reduce(SUM)`` combines the
     counts and the key-sharing counts, and every rank then runs the graph's
     masks and the wavefront, so dep_count, dep_bb and waves agree on every
-    rank."""
-    _check_group(n_shards, group)
+    rank.
+
+    With `devices` (a list, or "all": ``utils.backend.resolve_devices``),
+    device d runs the stacked form on its block of S/D shards (on the card
+    one K6 and one stacked K1 launch a card, and its block's key-sharing
+    product); ``all_reduce_sum`` (NCCL on the cards) sums the counts and
+    the products, and the graph's masks and K2 run once, on devices[0].
+    -> (dep_mask, a tuple of the devices' [S/D, B, Es] planes in shard
+    order, each left on its device (``dep_mask_to_host`` joins them);
+    dep_count, dep_bb, waves on devices[0]).  The callable's ``run`` takes
+    ``shard_to_devices``'s placement instead of the stacked arguments."""
+    _check_group(n_shards, group, devices)
+    if devices is not None:
+        return _DevicesStep(n_shards, devices, graph=True)
 
     def step(entry_rank, entry_eat_rank, entry_key, entry_status,
              entry_kind, txn_rank, txn_witness_mask, txn_kind, touches):
@@ -125,13 +260,17 @@ def make_sharded_step(n_shards: int, group=None):
     return step
 
 
-def make_sharded_deps_step(n_shards: int, group=None):
+def make_sharded_deps_step(n_shards: int, group=None, devices=None):
     """The deps half of ``make_sharded_step`` for the device store's flush
     windows: a callable of the eight arrays of ``ShardedEncoder.args()``
     without txn_kind -> (dep_mask[S, B, Es] bool, dep_count[B] i32), with
     no graph and no wavefront (deps probes are txn-agnostic scans; the
-    store plans execution apart).  `group` as in ``make_sharded_step``."""
-    _check_group(n_shards, group)
+    store plans execution apart).  `group` and `devices` as in
+    ``make_sharded_step``: with `devices`, dep_mask is the tuple of the
+    devices' planes and dep_count lies on devices[0]."""
+    _check_group(n_shards, group, devices)
+    if devices is not None:
+        return _DevicesStep(n_shards, devices, graph=False)
 
     def step(entry_rank, entry_eat_rank, entry_key, entry_status,
              entry_kind, txn_rank, txn_witness_mask, touches):

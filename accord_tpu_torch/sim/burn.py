@@ -668,8 +668,13 @@ def main(argv=None) -> int:
                              "(flush-window accumulation -> one kernel call)")
     parser.add_argument("--mesh-store", action="store_true",
                         help="device tier with the key-range-sharded deps "
-                             "step, its shards stacked on one device "
+                             "step, its shards stacked on one device, or "
+                             "spread over cards with --cards "
                              "(MeshDeviceCommandStore)")
+    parser.add_argument("--cards", type=int, default=None, metavar="N",
+                        help="--mesh-store: spread each store's shards over "
+                             "the first N visible cards (with --device cpu, "
+                             "N CPU devices); NCCL sums the counts")
     parser.add_argument("--device-verify", action="store_true",
                         help="cross-check every device-served scan against "
                              "the scalar oracle inline")
@@ -731,6 +736,12 @@ def main(argv=None) -> int:
                         help="--flight-dump: filter to trace ids containing "
                              "this substring")
     args = parser.parse_args(argv)
+    if args.cards is not None and (not args.mesh_store or args.cards < 1):
+        parser.error("--cards N takes N >= 1 and --mesh-store")
+    cards = None if args.cards is None else (
+        ["cpu"] * args.cards if args.device == "cpu"
+        else [f"cuda:{i}" for i in range(args.cards)])
+    spread = {} if cards is None else {"devices": cards}
     def make_store_factory(seed: int):
         # built PER SEED: a shared delayed-store RandomSource would carry
         # its state across --loops iterations, making a failure at loop
@@ -744,12 +755,14 @@ def main(argv=None) -> int:
                 return delayed_device_factory(
                     RandomSource(seed ^ 0x5D5D), mesh_store=args.mesh_store,
                     flush_window_us=args.flush_window_us,
-                    verify=args.device_verify, device=args.device)
+                    verify=args.device_verify, device=args.device,
+                    **spread)
             if args.mesh_store:
                 from accord_tpu_torch.impl.device_store import MeshDeviceCommandStore
                 return MeshDeviceCommandStore.factory(
                     flush_window_us=args.flush_window_us,
-                    verify=args.device_verify, device=args.device)
+                    verify=args.device_verify, device=args.device,
+                    **spread)
             from accord_tpu_torch.impl.device_store import DeviceCommandStore
             return DeviceCommandStore.factory(
                 flush_window_us=args.flush_window_us,

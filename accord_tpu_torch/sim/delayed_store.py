@@ -91,14 +91,19 @@ def _device_bases():
 
 def delayed_device_factory(random: RandomSource, *, mesh_store: bool = False,
                            flush_window_us: int = 0, verify: bool = False,
-                           device=None):
+                           device=None, devices=None):
     """Store factory composing the delayed-executor nemesis over the batched
     device tier (reference analogue: DelayedCommandStores.java:61-175
     wrapping the real store): tasks queue on the simulated delayed executor
     with randomized delays + cache-miss page-ins, then drain into the device
     store's flush window, exercising the batch path under storage-latency
     chaos.  `mesh_store` selects the key-range-sharded tier, its shards
-    stacked on `device` (None: the CUDA card, raising without one)."""
+    stacked on `device` (None: the CUDA card, raising without one) or,
+    with `devices` (a list, or "all"), spread over those cards in blocks
+    of S/D shards."""
+    if devices is not None and not mesh_store:
+        raise ValueError("devices= spreads the mesh store's shards: pass "
+                         "mesh_store=True")
     DeviceCommandStore, MeshDeviceCommandStore = _device_bases()
 
     class DelayedDeviceCommandStore(DelayedCommandStore, DeviceCommandStore):
@@ -110,6 +115,8 @@ def delayed_device_factory(random: RandomSource, *, mesh_store: bool = False,
 
     cls = (DelayedMeshDeviceCommandStore if mesh_store
            else DelayedDeviceCommandStore)
+    spread = {} if devices is None else {"devices": devices}
     return lambda i, node, ranges: cls(
         i, node, ranges, random=random.fork(),
-        flush_window_us=flush_window_us, verify=verify, device=device)
+        flush_window_us=flush_window_us, verify=verify, device=device,
+        **spread)

@@ -1079,7 +1079,7 @@ WARM_MIX = (("preaccept", 0.40), ("accept", 0.05), ("commit", 0.15),
             ("apply", 0.15), ("recover", 0.05), ("range", 0.20))
 
 
-def warm_flush_path(device) -> None:
+def warm_flush_path(device, devices=None) -> None:
     """Run every step of a ``DeviceCommandStore``'s flush on `device` once,
     so that a store serving after it finds each kernel loaded.  CUDA loads
     a kernel's module at its first launch, and a node process's first deps
@@ -1088,20 +1088,30 @@ def warm_flush_path(device) -> None:
     of every op kind (``store_plan``: preaccepts, accepts, commits, applies,
     recovery probes, range txns) runs through a DeviceCommandStore, then a
     window of 5,760 entries through ``resolve_step`` (torch's sort takes
-    other kernels above 4,096 elements).  The launches count as the
-    kernels' launches."""
-    from accord_tpu_torch.impl.device_store import DeviceCommandStore
+    other kernels above 4,096 elements).  With `devices`, the cards of a
+    ``MeshDeviceCommandStore`` (``devices[0]`` is `device`), the same plan
+    then runs through such a store over them: CUDA loads a kernel's module
+    on each card at its first launch there, and ``torch.cuda.nccl`` builds
+    the communicators of a tuple of cards at its first all-reduce over
+    them, far slower than a flush, and keeps them for the process.  The
+    launches count as the kernels' launches."""
+    from accord_tpu_torch.impl.device_store import (DeviceCommandStore,
+                                                    MeshDeviceCommandStore)
     from accord_tpu_torch.ops.encode import BatchEncoder, window_to_tensors
     from accord_tpu_torch.ops.sharded import resolve_step
 
-    node = StoreNode()
-    store = DeviceCommandStore.factory(device=device)(
-        0, node, node.kit.Ranges.of((0, 1 << 20)))
     plan = store_plan(0, n_keys=16, n_txns=160, window=(8, 64),
                       mix=WARM_MIX)
-    runner = StorePlanRunner(store, node, plan)
-    for ops in plan[1]:
-        runner.run_window(ops)
+    factories = [DeviceCommandStore.factory(device=device)]
+    if devices is not None:
+        factories.append(MeshDeviceCommandStore.factory(
+            n_shards=len(devices), device=device, devices=devices))
+    for factory in factories:
+        node = StoreNode()
+        store = factory(0, node, node.kit.Ranges.of((0, 1 << 20)))
+        runner = StorePlanRunner(store, node, plan)
+        for ops in plan[1]:
+            runner.run_window(ops)
     cfks, batch = build_world(n_keys=64, n_existing=3000, n_batch=64,
                               seed=1)
     enc = BatchEncoder(cfks, batch)

@@ -246,6 +246,15 @@ Phases; any failure raises, exits non-zero and prints no result lines:
     row retired (stale, guard_failed) and the baseline restored; then with
     a scale of 0.5, no kernel problem.  It prints the baselines, the
     gate's messages and the phase's seconds.
+20. the sharded step over a list of cards (ops/sharded.py, devices=), on
+    the one card here: phase 12's window in 8 shards over [cuda:0], its
+    counts and key-sharing products summed by an NCCL all-reduce over the
+    one card; with the launch counts zeroed just before and read just
+    after, the stacked step's launches, and every output == the stacked
+    step's; the one-card NCCL sums == the plain sums;
+    entry.dryrun_sharded_step(8, devices=[cuda:0]); the step's median ms
+    beside the stacked step's.  The four-card form runs in
+    accord_tpu_torch/multichip.py.
 Every K1 launch on the path comes with one K6 launch before it (succ_w, which
 the tile reads), so from phase 4 on each count of K1's launches is held ==
 K6's as well.  The tolerance everywhere is exact equality: every output is
@@ -821,7 +830,8 @@ def main() -> int:
         + f"; Python.h under {sysconfig.get_paths()['include']}")
     from accord_tpu_torch import bench, tpcc
     from accord_tpu_torch.bench import StoreBench
-    from accord_tpu_torch.entry import dryrun_multichip, entry
+    from accord_tpu_torch.entry import (dryrun_multichip,
+                                        dryrun_sharded_step, entry)
     from accord_tpu_torch.ops import cuda_kernels as ck
     from accord_tpu_torch.ops import (deps_kernel, keyset, range_kernel,
                                       wavefront)
@@ -830,8 +840,10 @@ def main() -> int:
                                              scalar_deps_oracle,
                                              window_to_tensors)
     from accord_tpu_torch.ops.sharded import (ShardedEncoder,
+                                              all_reduce_sum,
                                               make_sharded_deps_step,
-                                              make_sharded_step, resolve_step)
+                                              make_sharded_step, resolve_step,
+                                              shard_to_devices)
     from accord_tpu_torch.ops.recovery_kernel import (RecoveryEncoder,
                                                       batched_recovery_scans,
                                                       scalar_predicates)
@@ -1962,6 +1974,41 @@ def main() -> int:
     # history, then the gate on the card against a scratch history
     bench_gate(card, win, dl)
     log(f"[guard] {card}: phase 19 took {time.perf_counter() - t19:.1f} s")
+
+    t20 = time.perf_counter()
+    log(f"[phase] 20 starts at {t20 - t_script:.1f} s")
+    # ---- 20. the sharded step over a list of cards, on the one card here:
+    # phase 12's window, its counts summed by NCCL over one card, against
+    # the stacked step run again (phase 12's timing zeroed its mask)
+    card_step = make_sharded_step(n_shards, devices=[dev])
+    placed = shard_to_devices(sh_enc.args(), n_shards, [dev])
+    sh_mask, sh_count, sh_bb, sh_waves = step8(*sh_args)
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    l_mask, l_count, l_bb, l_waves = card_step.run(placed)
+    torch.cuda.synchronize()
+    l_launches = {k.name: k.launches for k in ck.KERNELS}
+    check(l_launches == sh_launches,
+          f"the step over [{dev}] launched {l_launches}, the stacked step "
+          f"{sh_launches}")
+    check(len(l_mask) == 1 and torch.equal(l_mask[0], sh_mask)
+          and torch.equal(l_count, sh_count) and torch.equal(l_bb, sh_bb)
+          and torch.equal(l_waves, sh_waves),
+          f"the step over [{dev}] != the stacked step")
+    tf_s = touches_s.to(torch.float32)
+    for name, part in (("counts", sh_count), ("products", tf_s @ tf_s.T)):
+        summed = all_reduce_sum([part.clone()])[0]
+        check(torch.equal(summed, torch.stack([part]).sum(
+            0, dtype=part.dtype)),
+            f"the one-card NCCL sum of the {name} != the plain sum")
+    dry_l = dryrun_sharded_step(n_shards, devices=[dev])
+    card_step_ms = median_ms(lambda: card_step.run(placed), reps=15)
+    log(f"[cards] the sharded step over [{dev}], S = {n_shards}: launches "
+        f"{l_launches}; outputs == the stacked step's; the one-card NCCL "
+        f"sums == the plain sums; dryrun_sharded_step({n_shards}) over "
+        f"[{dev}]: {dry_l}; {card_step_ms:.4f} ms against the stacked "
+        f"{step8_ms:.4f} ms (CUDA-event medians); phase 20 took "
+        f"{time.perf_counter() - t20:.1f} s")
 
     kernels = [
         {"name": "deps_tile", "route": "cuda",

@@ -30,7 +30,9 @@ DEVIATIONS = {
     "utils/backend.py": "device selection: the card, or the CPU if asked",
     "impl/device_store.py": "flush windows resolved by the port's kernels; "
                             "device= raises without a card; no mesh "
-                            "attribute; a range bound outside int32 (the "
+                            "attribute: the mesh store stacks its shards "
+                            "or spreads them over the cards it is given "
+                            "(devices=, NCCL in place of psum); a range bound outside int32 (the "
                             "real-socket host's span ends at 2**31) sends "
                             "every bound of the stab as its rank, where the "
                             "reference's int32 encoding overflows and the "
@@ -40,11 +42,16 @@ DEVIATIONS = {
     # the burn's CLI: where the device stores run
     "sim/burn.py": "--device {cuda,cpu} passed to the store factories "
                    "(the delayed-store composition included), no platform "
-                   "probe; a comment's change-history tag dropped",
+                   "probe; --cards N spreads a --mesh-store's shards over "
+                   "the first N cards (the JAX mesh store takes every "
+                   "visible device, the port's only the cards it is "
+                   "given); a comment's change-history tag dropped",
     "sim/delayed_store.py": "delayed_device_factory composes over the "
                             "port's MeshDeviceCommandStore (its shards "
                             "stacked on one device, no jax mesh to set up) "
-                            "and takes device=, passed to both stores",
+                            "and takes device=, passed to both stores, and "
+                            "devices=, the cards the mesh store spreads its "
+                            "shards over (the burn's --cards)",
     # the open-loop workload package holds the port's seeded worlds too
     "workload/__init__.py": "re-exports workload/worlds.py (the port's "
                             "own module: the bench worlds, the protocol "

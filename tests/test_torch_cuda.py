@@ -450,12 +450,13 @@ def test_recovery_scans_on_card_match_cpu(card):
         assert enc.decode_ids(got[3][i]) == anw
 
 
-@pytest.mark.parametrize("mesh", [False, True])
+@pytest.mark.parametrize("mesh", [False, True, "cards"])
 def test_store_on_card_matches_cpu(card, mesh):
     """A small seeded plan through the port's store on the card and on the
     CPU, verify on: every op's result and every device_* counter after each
     window equal, the final state equal; the card's store launched K1 (or
-    stacked K1) and K2."""
+    stacked K1) and K2.  "cards": the mesh store spread over every visible
+    card (K1 on each of them), on the CPU over as many CPU devices."""
     from accord_tpu_torch.impl.device_store import (DeviceCommandStore,
                                                     MeshDeviceCommandStore)
     from accord_tpu_torch.workload import (StoreNode, StorePlanRunner,
@@ -467,13 +468,19 @@ def test_store_on_card_matches_cpu(card, mesh):
     plan = store_plan(21, n_txns=300, window=(16, 64), mix=mix)
     cls = MeshDeviceCommandStore if mesh else DeviceCommandStore
     extra = {"n_shards": 8} if mesh else {}
+    n_cards = torch.cuda.device_count()
     runners = []
     for device in (card, "cpu"):
+        if mesh == "cards":
+            extra["devices"] = [torch.device(device.type, i) for i in
+                                range(n_cards)] if device is card \
+                else ["cpu"] * n_cards
         node = StoreNode()
         store = cls.factory(verify=True, device=device, **extra)(
             0, node, node.kit.Ranges.of((0, 1 << 20)))
         runners.append(StorePlanRunner(store, node, plan))
     gpu, cpu = runners
+    cuda_kernels.reset_launch_counts()
     before = {k.name: k.launches for k in cuda_kernels.KERNELS}
     for w, ops in enumerate(plan[1]):
         assert gpu.run_window(ops) == cpu.run_window(ops), f"window {w}"
@@ -482,11 +489,127 @@ def test_store_on_card_matches_cpu(card, mesh):
     assert store_state(gpu.store) == store_state(cpu.store)
     launched = {k.name: k.launches - before[k.name]
                 for k in cuda_kernels.KERNELS}
-    # one K1 launch a deps batch; device_batches also counts the recovery
-    # batches, which run plain torch
-    assert 0 < launched["deps_tile"] <= gpu.store.device_batches
+    # one K1 launch a deps batch (on each card, over the cards);
+    # device_batches also counts the recovery batches, which run plain
+    # torch
+    per_card = launched["deps_tile"] // (n_cards if mesh == "cards" else 1)
+    assert 0 < per_card <= gpu.store.device_batches
     assert launched["wavefront"] == gpu.store.device_wave_batches > 0
     assert not gpu.store.device_disabled
+    if mesh == "cards":
+        k1 = cuda_kernels.DEPS_TILE.by_device
+        assert sorted(k1) == list(range(n_cards))
+        assert len(set(k1.values())) == 1, k1
+        assert cuda_kernels.SUCC_W.by_device == k1
+
+
+def test_steps_over_every_card_match_stacked(card):
+    """Both sharded steps with 8 shards spread over every visible card (1,
+    2, 4 or 8 of them) == the stacked steps on cuda:0, output for output:
+    one K6 and one stacked K1 launch on each card, K2 once on cuda:0."""
+    from accord_tpu_torch.ops.sharded import (dep_mask_to_host,
+                                              make_sharded_deps_step)
+
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    if 8 % len(cards):
+        pytest.skip(f"8 shards do not split over {len(cards)} cards")
+    enc = ShardedEncoder(*random_world(RandomSource(870), n_keys=40,
+                                       n_existing=600, n_batch=96), 8)
+    t = window_to_tensors(enc.args(), device=card)
+    want = make_sharded_step(8)(*t)
+    want_deps = make_sharded_deps_step(8)(*t[:7], t[8])
+    cuda_kernels.reset_launch_counts()
+    got = make_sharded_step(8, devices=cards)(*enc.args())
+    for c in cards:
+        torch.cuda.synchronize(c)
+    every = {i: 1 for i in range(len(cards))}
+    assert cuda_kernels.DEPS_TILE.by_device == every
+    assert cuda_kernels.SUCC_W.by_device == every
+    assert cuda_kernels.WAVEFRONT.by_device == {0: 1}
+    deps = make_sharded_deps_step(8, devices=cards)(*t[:7], t[8])
+    assert [m.device for m in got[0]] == cards
+    assert np.array_equal(dep_mask_to_host(got[0]), want[0].cpu().numpy())
+    assert np.array_equal(dep_mask_to_host(deps[0]), want[0].cpu().numpy())
+    assert torch.equal(deps[1], want_deps[1])
+    for g, w in zip(got[1:], want[1:]):
+        assert g.device == card and torch.equal(g, w)
+    assert int(want[1].sum()) > 0
+
+
+NCCL_WORLD = 4
+
+
+def _nccl_rank(rank, world, init_file, args, out_dir):
+    """One rank of the torch.distributed form over NCCL on cuda:rank: the
+    sharded step and the deps step on the stacked numpy `args`; its
+    outputs go to out_dir/rank<r>.npz."""
+    import torch.distributed as dist
+
+    from accord_tpu_torch.ops.sharded import make_sharded_deps_step
+
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        group = dist.group.WORLD
+        t = window_to_tensors(args, device=dev)
+        step = make_sharded_step(world, group=group)(*t)
+        deps = make_sharded_deps_step(world, group=group)(*t[:7], t[8])
+        torch.cuda.synchronize(dev)
+        np.savez(f"{out_dir}/rank{rank}.npz",
+                 *[o.cpu().numpy() for o in step + deps],
+                 k1=np.array(cuda_kernels.DEPS_TILE.by_device.get(rank, 0)))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_nccl_group_form_on_four_cards(card, tmp_path):
+    """The torch.distributed form over NCCL: the ranks of
+    tests/test_torch_sharded_gloo.py with rank r on cuda:r, their gathered
+    outputs == the stacked step's on cuda:0, each rank's K1 on its own
+    card."""
+    import time
+
+    import torch.multiprocessing as mp
+
+    from accord_tpu_torch.ops.sharded import make_sharded_deps_step
+
+    if torch.cuda.device_count() < NCCL_WORLD:
+        pytest.skip(f"needs {NCCL_WORLD} cards, "
+                    f"{torch.cuda.device_count()} visible")
+    cuda_kernels.build((cuda_kernels.SUCC_W, cuda_kernels.DEPS_TILE,
+                        cuda_kernels.WAVEFRONT))
+    enc = ShardedEncoder(*random_world(RandomSource(450), n_keys=14,
+                                       n_existing=120, n_batch=24),
+                         NCCL_WORLD)
+    ctx = mp.start_processes(
+        _nccl_rank, args=(NCCL_WORLD, tmp_path / "rendezvous", enc.args(),
+                          tmp_path),
+        nprocs=NCCL_WORLD, join=False, start_method="spawn")
+    deadline = time.monotonic() + 300
+    try:
+        while not ctx.join(timeout=1.0):
+            assert time.monotonic() < deadline, "the NCCL ranks hung"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+            p.join(10)
+    outs = [np.load(tmp_path / f"rank{r}.npz") for r in range(NCCL_WORLD)]
+    t = window_to_tensors(enc.args(), device=card)
+    want = [w.cpu().numpy() for w in make_sharded_step(NCCL_WORLD)(*t)]
+    want_deps = [w.cpu().numpy() for w in
+                 make_sharded_deps_step(NCCL_WORLD)(*t[:7], t[8])]
+    for i, w in ((0, want[0]), (4, want_deps[0])):
+        assert np.array_equal(
+            np.concatenate([o[f"arr_{i}"] for o in outs]), w)
+    for o in outs:
+        for i, w in ((1, want[1]), (2, want[2]), (3, want[3]),
+                     (5, want_deps[1])):
+            assert np.array_equal(o[f"arr_{i}"], w)
+        assert int(o["k1"]) == 2  # the step's and the deps step's
+    assert int(want[1].sum()) > 0
 
 
 def test_mesh_arm_burn_on_card_matches_cpu(card):

@@ -6,7 +6,9 @@ exactly on the same worlds: the encoder's nine arrays, dtype and shape
 included, and the step's four outputs against ``make_sharded_step`` on the
 8-device virtual CPU mesh of tests/conftest.py, element for element.  Every
 output is integer or boolean, so the tolerance throughout is ==.  The
-torch.distributed form is held == in tests/test_torch_sharded_gloo.py.
+form over a list of devices runs here on CPU "devices", its all-reduce in
+its plain version; the torch.distributed form is held == in
+tests/test_torch_sharded_gloo.py.
 """
 
 import jax
@@ -25,9 +27,11 @@ from accord_tpu_torch import workload
 from accord_tpu_torch.ops import cuda_kernels, deps_kernel
 from accord_tpu_torch.ops.encode import (PAD, scalar_deps_oracle,
                                          window_to_tensors)
-from accord_tpu_torch.ops.sharded import (ShardedEncoder,
+from accord_tpu_torch.ops.sharded import (ShardedEncoder, dep_mask_to_host,
                                           make_sharded_deps_step,
-                                          make_sharded_step, resolve_step)
+                                          make_sharded_step, resolve_step,
+                                          shard_to_devices)
+from accord_tpu_torch.utils import backend
 from accord_tpu_torch.utils.random_source import RandomSource as PortRandom
 from tests.test_ops import random_world as jax_random_world
 
@@ -199,3 +203,99 @@ def test_sharded_step_rejects_what_the_layout_forbids():
         make_sharded_step(8)(*args)
     with pytest.raises(ValueError, match="key blocks"):
         make_sharded_deps_step(4)(*args[:7], args[8][:, 1:])
+
+
+@pytest.mark.parametrize("n_devices", [1, 2, 4, 8])
+def test_steps_over_devices_match_jax(n_devices):
+    """8 shards over 1, 2, 4 and 8 CPU devices, blocks of 8/D shards a
+    device: both steps == JAX make_sharded_step and make_sharded_deps_step
+    on the 8-device mesh, the planes one a device in shard order, the
+    counts summed by the all-reduce's plain version; no kernel launch."""
+    (jc, jb), (pc, pb) = _worlds(460 + n_devices, n_keys=16, n_existing=120,
+                                 n_batch=24)
+    ja = JaxShardedEncoder(jc, jb, n_shards=8).args()
+    want = jax_make_sharded_step(_mesh(8))(*ja)
+    want_deps = jax_make_sharded_deps_step(_mesh(8))(*ja[:7], ja[8])
+    args = ShardedEncoder(pc, pb, 8).args()
+    devices = ["cpu"] * n_devices
+    placed = shard_to_devices(args, 8, devices)
+    assert [a[0].shape[0] for a in placed] == [8 // n_devices] * n_devices
+    before = [k.launches for k in cuda_kernels.KERNELS]
+    got = make_sharded_step(8, devices=devices)(*args)
+    deps = make_sharded_deps_step(8, devices=devices)(*args[:7], args[8])
+    assert [k.launches for k in cuda_kernels.KERNELS] == before
+    assert len(got[0]) == len(deps[0]) == n_devices
+    for name, g, w in (("dep_mask", dep_mask_to_host(got[0]), want[0]),
+                       ("dep_count", got[1].numpy(), want[1]),
+                       ("dep_bb", got[2].numpy(), want[2]),
+                       ("waves", got[3].numpy(), want[3]),
+                       ("deps mask", dep_mask_to_host(deps[0]), want_deps[0]),
+                       ("deps count", deps[1].numpy(), want_deps[1])):
+        w = np.asarray(w)
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert np.array_equal(g, w), name
+    assert int(got[1].sum()) > 0
+
+
+def _fake_cards(monkeypatch, n, capability=(9, 0)):
+    """torch.cuda as a host with `n` cards of `capability` would show it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: n)
+    monkeypatch.setattr(torch.cuda, "get_device_capability",
+                        lambda dev=None: capability)
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda dev=None: "a card")
+
+
+@pytest.mark.parametrize("case", ["cards", "split", "group"])
+def test_devices_form_refuses(monkeypatch, case):
+    """No fallback: a card named twice, a missing card, a card that is not
+    sm_90, an empty list or cards mixed with the CPU; shards that do not
+    split evenly over the devices; a group given with devices.  Each
+    raises before any work."""
+    if case == "cards":
+        _fake_cards(monkeypatch, 4)
+        assert backend.resolve_devices("all") == [
+            torch.device("cuda", i) for i in range(4)]
+        for bad, match in ((["cuda:1", "cuda:1"], "named twice"),
+                           (["cuda:0", "cuda:4"], "no card"),
+                           ([], "empty"), (["cuda:0", "cpu"], "mixed")):
+            with pytest.raises((ValueError, RuntimeError), match=match):
+                backend.resolve_devices(bad)
+        _fake_cards(monkeypatch, 4, capability=(8, 0))
+        with pytest.raises(RuntimeError, match="sm_90a"):
+            make_sharded_step(8, devices=["cuda:0", "cuda:1"])
+        assert backend.resolve_devices(["cpu"] * 3) == \
+            [torch.device("cpu")] * 3
+    elif case == "split":
+        _, (pc, pb) = _worlds(470, n_keys=16, n_existing=40, n_batch=8)
+        args = ShardedEncoder(pc, pb, 8).args()
+        for step in (make_sharded_step, make_sharded_deps_step):
+            with pytest.raises(ValueError, match="do not split evenly"):
+                step(8, devices=["cpu"] * 3)
+        with pytest.raises(ValueError, match="do not split evenly"):
+            shard_to_devices(args, 8, ["cpu"] * 3)
+    else:
+        for step in (make_sharded_step, make_sharded_deps_step):
+            with pytest.raises(ValueError, match="not both"):
+                step(4, group=object(), devices=["cpu"] * 4)
+
+
+@pytest.mark.slow
+def test_dryrun_multichip_over_devices_on_cpu():
+    """Both legs of the dry run over 4 CPU devices: the step's checks, and
+    a protocol leg whose every store spans the 4 devices."""
+    out = port_entry.dryrun_multichip(8, "cpu", devices=["cpu"] * 4)
+    assert out["devices"] == ["cpu"] * 4 and out["edges"] > 0
+    assert out["protocol_acks"] > 0 and out["protocol_device_hits"] > 0
+
+
+@pytest.mark.slow
+def test_mesh_arm_over_cards_matches_jax_line(capsys):
+    """The mesh protocol cell through the burn CLI with --cards 4 on CPU
+    devices prints the JAX package's line: where the shards lie does not
+    change what the stores serve."""
+    from accord_tpu_torch.sim import burn
+    argv, want = workload.PROTOCOL_BURNS["mesh"]
+    assert burn.main(argv.split() + ["--cards", "4", "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.strip().splitlines()[-1] == want

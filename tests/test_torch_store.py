@@ -138,6 +138,18 @@ def test_mesh_store_matches_jax_mesh():
     assert counters["device_hits"] > 0
 
 
+def test_mesh_store_over_devices_matches_jax_mesh():
+    """MeshDeviceCommandStore at S = 8 spread over 4 CPU devices (blocks
+    of 2 shards, the counts summed by the all-reduce's plain version)
+    against the JAX one on the conftest's 8-device virtual mesh."""
+    counters, _ = differential(
+        store_plan(8, n_txns=300),
+        port_factory=MeshDeviceCommandStore.factory(
+            n_shards=8, verify=True, device="cpu", devices=["cpu"] * 4),
+        jax_factory=JaxMeshDeviceCommandStore.factory(verify=True))
+    assert counters["device_hits"] > 0
+
+
 def test_default_preaccept_window_split():
     """The default cell's PreAccept window (512 Zipf preaccepts in one
     flush) after a 2,048-txn history of ``default_store_plan``: the JAX and
