@@ -174,7 +174,7 @@ def profile_from_samples(samples_ms: dict, shapes: dict) -> dict:
         prof.note_retrace(kernel, shape)
     for kernel, samples in samples_ms.items():
         for ms in samples:
-            prof.window_begin(None)
+            prof.window_begin()
             now[0] = 0.0
             t = prof.begin()
             now[0] = ms / 1e3
@@ -1510,7 +1510,7 @@ def scalar_lane(n_keys: int = 256, n_existing: int = 8192,
 
     t0 = time.perf_counter()
     for tid, keyset in batch:
-        prof.window_begin(None)
+        prof.window_begin()
         t = prof.begin()
         for k in keyset:
             by_key[k].map_reduce_active(tid, tid.kind.witnesses(), count)

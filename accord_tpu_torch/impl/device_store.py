@@ -43,7 +43,6 @@ machinery still gating every transition (see _plan_waves).
 
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
@@ -52,7 +51,7 @@ import torch
 from accord_tpu_torch.local.status import SaveStatus
 from accord_tpu_torch.local.store import (CommandStore, PreLoadContext,
                                           SafeCommandStore)
-from accord_tpu_torch.obs.profiler import profiler_from_env
+from accord_tpu_torch.obs.profiler import profiler_from_env, span
 from accord_tpu_torch.obs.registry import Registry
 from accord_tpu_torch.obs.views import (CounterDict, MetricView,
                                         bind_metric_views)
@@ -192,10 +191,13 @@ class DeviceSafeCommandStore(SafeCommandStore):
         store.device_hits += 1
         if store.verify:
             self._verify_against_scalar(keys, before, kinds, exclude, probe)
+        served = 0
         for key in keys:
             for dep in probe.keyed.get(key, ()):
                 if dep != exclude:
                     fn(key, dep)
+                    served += 1
+        store.device_served_deps += served
         self._map_range_conflicts(owned, is_range, before, kinds, fn,
                                   on_range_dep)
 
@@ -501,6 +503,12 @@ class DeviceCommandStore(CommandStore):
     # compile (jit caches per shape tuple); the port compiles each kernel
     # once for every shape, so here the counter counts shapes, not compiles
     device_compile_shapes = MetricView("accord_device_compile_shapes_total")
+    # what a flush hands the device: the deps encoder's index entries (E
+    # of each deps flush, summed), and the deps served from its probes
+    # (added once a device hit)
+    device_encoded_entries = MetricView(
+        "accord_device_encoded_entries_total")
+    device_served_deps = MetricView("accord_device_served_deps_total")
 
     def __init__(self, store_id: int, node, ranges, *,
                  flush_window_us: int = 0, verify: bool = False,
@@ -530,12 +538,11 @@ class DeviceCommandStore(CommandStore):
         if registry is None:  # bare-store harnesses without a full Node
             registry = Registry()
         bind_metric_views(self, registry, store=store_id)
-        # kernel-level profiler (obs/profiler.py): fenced per-kernel laps +
-        # flush-window waterfall, sampled 1-in-N under ACCORD_PROFILE=N
-        # (off by default; the always-on shape ledger is a set lookup).
-        # Fencing is the host copy (.cpu()) each device lap ends with.
+        # kernel-level profiler (obs/profiler.py): fenced per-kernel laps,
+        # sampled 1-in-N under ACCORD_PROFILE=N (off by default; the
+        # always-on shape ledger is a set lookup).  Fencing is the host
+        # copy (.cpu()) each device lap ends with.
         self.profiler = profiler_from_env(registry)
-        self._window_opened = None  # wall stamp of the window's first submit
         # miss-cause breakdown for the deps arm (hit-rate diagnosis):
         # no_probe (nothing precomputed at this (before, kinds)), version
         # (gate tripped), key_cover (probe didn't cover a queried key)
@@ -545,6 +552,14 @@ class DeviceCommandStore(CommandStore):
             store=store_id)
         self._h_window_txns = registry.histogram(
             "accord_device_window_txns", store=store_id)
+        # bytes of the tensors the deps and wave arms send to the device
+        # and read back, one add a flush
+        self.device_copy_bytes = CounterDict(
+            registry, "accord_device_copy_bytes_total", ("h2d", "d2h"),
+            label="dir", store=store_id)
+        # each planned window's wave depth (device_wave_max_depth its max)
+        self.device_wave_depths = registry.histogram(
+            "accord_device_wave_depth", store=store_id)
         self._seen_shapes = set()  # encoded-shape buckets (compile count)
         # set when the device backend dies mid-run (e.g. a lost card): the
         # store keeps serving every scan through the scalar
@@ -572,8 +587,6 @@ class DeviceCommandStore(CommandStore):
             # the dead flush-window deferral entirely
             super()._submit(context, fn, result)
             return
-        if self.profiler.enabled and not self._window:
-            self._window_opened = time.perf_counter()
         self._window.append((context, fn, result))
         if not self._flush_scheduled and self._flush_hold == 0:
             self._flush_scheduled = True
@@ -617,6 +630,12 @@ class DeviceCommandStore(CommandStore):
         window, self._window = self._window, []
         if not window:
             return
+        with span("accord.flush"):
+            self._run_window(window)
+
+    def _run_window(self, window) -> None:
+        """Precompute a drained window's probes and plan, then serve its
+        operations in order."""
         window_txns: Set[TxnId] = set()
         for context, _fn, _result in window:
             window_txns.update(context.txn_ids)
@@ -627,8 +646,7 @@ class DeviceCommandStore(CommandStore):
         self.device_window_txn_max = max(self.device_window_txn_max,
                                          len(window_txns))
         prof = self.profiler
-        prof.window_begin(self._window_opened)
-        self._window_opened = None
+        prof.window_begin()
         plan = None
         if not self.device_disabled:
             try:
@@ -722,25 +740,41 @@ class DeviceCommandStore(CommandStore):
             return
 
         # each profiler lap ends at a host copy (.cpu()) — the copy IS the
-        # fence, so "device" measures the kernel, not dispatch overlap
+        # fence, so "device" measures the kernel, not dispatch overlap; the
+        # spans split the laps: deps_encode = snapshot + encode + upload,
+        # deps_kernel = launch + download, deps_decode = decode
         t = self.profiler.begin()
-        cfks, versions, committed_versions = self._probe_snapshots(probes)
-        enc = BatchEncoder.for_probes(cfks, probes)
+        with span("accord.deps.snapshot"):
+            cfks, versions, committed_versions = self._probe_snapshots(
+                probes)
+        with span("accord.deps.encode"):
+            enc = BatchEncoder.for_probes(cfks, probes)
         s, b = enc.state, enc.dbatch
-        (entry_rank, entry_eat_rank, entry_key, entry_status, entry_kind,
-         txn_rank, txn_wmask, _txn_kind, touches) = window_to_tensors(
-             s, b, self.device)
-        t = self.profiler.lap(t, "deps_encode", stage="encode")
-        self._note_compile_shape(s.entry_rank.shape, b.touches.shape)
-        # K1 on the card; its plain version on CPU tensors
-        dep_mask, _count = batched_active_deps_cuda(
-            entry_rank, entry_eat_rank, entry_key, entry_status, entry_kind,
-            txn_rank, txn_wmask, touches)
-        mask_host = dep_mask.cpu().numpy()
-        t = self.profiler.lap(t, "deps_kernel", stage="device")
-        keyed = enc.decode_key_deps(mask_host)
-        self.profiler.lap(t, "deps_decode", stage="decode")
-        self._install_probes(probes, keyed, versions, committed_versions)
+        with span("accord.deps.upload"):
+            placed = window_to_tensors(s, b, self.device)
+        t = self.profiler.lap(t, "deps_encode")
+        with span("accord.deps.launch"):
+            self._note_compile_shape(s.entry_rank.shape, b.touches.shape)
+            # K1 on the card; its plain version on CPU tensors.  The deps
+            # step takes the window's tensors less txn_kind, the eighth
+            dep_mask, _count = batched_active_deps_cuda(*placed[:7],
+                                                        placed[8])
+        with span("accord.deps.download"):
+            mask_host = dep_mask.cpu().numpy()
+        t = self.profiler.lap(t, "deps_kernel")
+        with span("accord.deps.decode"):
+            keyed = enc.decode_key_deps(mask_host)
+        self.profiler.lap(t, "deps_decode")
+        self._count_deps_flush(placed, mask_host, len(enc.entries))
+        with span("accord.deps.install"):
+            self._install_probes(probes, keyed, versions, committed_versions)
+
+    def _count_deps_flush(self, placed, mask_host, entries: int) -> None:
+        """One deps flush's counters: the bytes of the tensors it sent to
+        the device and of the mask it read back, and the entries encoded."""
+        self.device_copy_bytes["h2d"] += sum(a.nbytes for a in placed)
+        self.device_copy_bytes["d2h"] += mask_host.nbytes
+        self.device_encoded_entries += entries
 
     def _precompute_recovery(self, window) -> None:
         """Batch every declared recovery probe (BeginRecovery's four
@@ -759,7 +793,10 @@ class DeviceCommandStore(CommandStore):
                 probes.append((txn_id, owned))
         if not probes:
             return
+        with span("accord.recovery"):
+            self._recovery_window(probes)
 
+    def _recovery_window(self, probes) -> None:
         t = self.profiler.begin()
         touched = sorted({k for _, ks in probes for k in ks})
         cfks = [self.cfks[k] for k in touched if k in self.cfks]
@@ -768,12 +805,12 @@ class DeviceCommandStore(CommandStore):
         enc = RecoveryEncoder(cfks, probes)
         args = enc.args()
         tensors = enc.tensors(self.device)
-        t = self.profiler.lap(t, "recovery_encode", stage="encode")
+        t = self.profiler.lap(t, "recovery_encode")
         self._note_compile_shape(
             *(getattr(a, "shape", None) for a in args), kernel="recovery")
         ra, rb, cw, anw = (m.cpu().numpy()
                            for m in batched_recovery_scans(*tensors))
-        t = self.profiler.lap(t, "recovery_kernel", stage="device")
+        t = self.profiler.lap(t, "recovery_kernel")
         self.device_batches += 1
         self.device_batched_probes += len(probes)
         for i, (txn_id, ks) in enumerate(probes):
@@ -781,7 +818,7 @@ class DeviceCommandStore(CommandStore):
                 txn_id, enc.decode_keyed(ra[i]), enc.decode_keyed(rb[i]),
                 enc.decode_keyed(cw[i]), enc.decode_keyed(anw[i]),
                 set(ks), versions)
-        self.profiler.lap(t, "recovery_decode", stage="decode")
+        self.profiler.lap(t, "recovery_decode")
 
     def _precompute_ranges(self, window) -> None:
         """Stab the live range-command index with every declared probe's
@@ -816,7 +853,10 @@ class DeviceCommandStore(CommandStore):
                 probes.append((before, kinds, mode, owned_repr, spans))
         if not probes:
             return
+        with span("accord.range"):
+            self._range_window(probes)
 
+    def _range_window(self, probes) -> None:
         # the encoded interval index is cached on range_version: a steady
         # workload over a rarely-mutated index re-uses the bound tensors on
         # the store's device and pays only for the query side
@@ -865,12 +905,12 @@ class DeviceCommandStore(CommandStore):
             dev_starts, dev_ends, dev_qs, dev_qe = (
                 torch.from_numpy(a).to(self.device)
                 for a in _bound_ranks(*bounds, qs, qe))
-        t = self.profiler.lap(t, "range_encode", stage="encode")
+        t = self.profiler.lap(t, "range_encode")
         self._note_compile_shape(tuple(dev_starts.shape), (q_pad,),
                                  kernel="range")
         mask = range_stab_mask(dev_starts, dev_ends, dev_qs,
                                dev_qe).cpu().numpy()
-        t = self.profiler.lap(t, "range_kernel", stage="device")
+        t = self.profiler.lap(t, "range_kernel")
         self.device_range_batches += 1
         version = self.range_version
         row = 0
@@ -884,7 +924,7 @@ class DeviceCommandStore(CommandStore):
             self._precomputed_ranges[(before, kinds)] = _RangeProbe(
                 before, kinds, mode, owned_repr, tuple(sorted(cand)),
                 version, log_len=len(self.range_log))
-        self.profiler.lap(t, "range_decode", stage="decode")
+        self.profiler.lap(t, "range_decode")
 
     # ------------------------------------------------ wavefront scheduling --
     def _plan_waves(self, window):
@@ -931,40 +971,51 @@ class DeviceCommandStore(CommandStore):
         if len(probes) < 2:
             return None
 
+        # wavefront_encode = encode + upload, wavefront_kernel = launch +
+        # download
         t_prof = self.profiler.begin()
         n = len(probes)
-        tokens = sorted({t for _, _, toks in probes for t in toks})
-        tindex = {t: i for i, t in enumerate(tokens)}
-        order = sorted(range(n), key=lambda i: probes[i][1])
-        b = _pad_to(n, 128)
-        kpad = _pad_to(len(tokens), 128)
-        txn_rank = np.full(b, -1, np.int32)
-        txn_wmask = np.zeros(b, np.int32)
-        txn_kind = np.zeros(b, np.int32)
-        touches = np.zeros((b, kpad), bool)
-        for rank, i in enumerate(order):
-            txn_id, _eat, toks = probes[i]
-            txn_rank[i] = rank
-            txn_wmask[i] = witness_mask(txn_id.kind)
-            txn_kind[i] = int(txn_id.kind)
-            for t in toks:
-                touches[i, tindex[t]] = True
-        dev_rank, dev_wmask, dev_kind, dev_touches = (
-            torch.from_numpy(a).to(self.device)
-            for a in (txn_rank, txn_wmask, txn_kind, touches))
-        t_prof = self.profiler.lap(t_prof, "wavefront_encode",
-                                   stage="encode")
-        self._note_compile_shape((b,), (b, kpad), kernel="wavefront")
-        dep_bb = in_batch_graph(dev_rank, dev_wmask, dev_kind, dev_touches)
-        # K2 on the card; its plain version on CPU tensors
-        waves = execution_waves_cuda(dep_bb, dev_rank).cpu().numpy()[:n]
-        self.profiler.lap(t_prof, "wavefront_kernel", stage="device")
+        with span("accord.waves.encode"):
+            tokens = sorted({t for _, _, toks in probes for t in toks})
+            tindex = {t: i for i, t in enumerate(tokens)}
+            order = sorted(range(n), key=lambda i: probes[i][1])
+            b = _pad_to(n, 128)
+            kpad = _pad_to(len(tokens), 128)
+            txn_rank = np.full(b, -1, np.int32)
+            txn_wmask = np.zeros(b, np.int32)
+            txn_kind = np.zeros(b, np.int32)
+            touches = np.zeros((b, kpad), bool)
+            for rank, i in enumerate(order):
+                txn_id, _eat, toks = probes[i]
+                txn_rank[i] = rank
+                txn_wmask[i] = witness_mask(txn_id.kind)
+                txn_kind[i] = int(txn_id.kind)
+                for t in toks:
+                    touches[i, tindex[t]] = True
+        with span("accord.waves.upload"):
+            placed = [torch.from_numpy(a).to(self.device)
+                      for a in (txn_rank, txn_wmask, txn_kind, touches)]
+        t_prof = self.profiler.lap(t_prof, "wavefront_encode")
+        with span("accord.waves.launch"):
+            self._note_compile_shape((b,), (b, kpad), kernel="wavefront")
+            dev_rank, dev_wmask, dev_kind, dev_touches = placed
+            dep_bb = in_batch_graph(dev_rank, dev_wmask, dev_kind,
+                                    dev_touches)
+            # K2 on the card; its plain version on CPU tensors
+            dev_waves = execution_waves_cuda(dep_bb, dev_rank)
+        with span("accord.waves.download"):
+            waves_host = dev_waves.cpu().numpy()
+        self.profiler.lap(t_prof, "wavefront_kernel")
+        waves = waves_host[:n]
         if self.verify:
             self._verify_waves(probes, txn_rank, txn_wmask, txn_kind, waves)
+        self.device_copy_bytes["h2d"] += sum(a.nbytes for a in placed)
+        self.device_copy_bytes["d2h"] += waves_host.nbytes
+        depth = int(waves.max()) + 1
+        self.device_wave_depths.observe(depth)
         self.device_wave_batches += 1
         self.device_wave_planned += n
-        self.device_wave_max_depth = max(self.device_wave_max_depth,
-                                         int(waves.max()) + 1)
+        self.device_wave_max_depth = max(self.device_wave_max_depth, depth)
         return {probes[i][0]: (int(waves[i]), probes[i][1])
                 for i in range(n)}
 
@@ -1069,28 +1120,41 @@ class MeshDeviceCommandStore(DeviceCommandStore):
             return
 
         t = self.profiler.begin()
-        cfks, versions, committed_versions = self._probe_snapshots(probes)
-        # PAD-granular shape bucketing (not the encoder's default pad=8),
-        # as the JAX store buckets the shapes of its shared jitted step
-        enc = ShardedEncoder.for_probes(cfks, probes,
-                                        n_shards=self._mesh_shards, pad=PAD)
-        args = enc.args()
+        with span("accord.deps.snapshot"):
+            cfks, versions, committed_versions = self._probe_snapshots(
+                probes)
+        with span("accord.deps.encode"):
+            # PAD-granular shape bucketing (not the encoder's default
+            # pad=8), as the JAX store buckets the shapes of its shared
+            # jitted step
+            enc = ShardedEncoder.for_probes(
+                cfks, probes, n_shards=self._mesh_shards, pad=PAD)
+            args = enc.args()
         deps_args = args[:7] + args[8:]
-        if self.devices is None:
-            placed = window_to_tensors(args, device=self.device)
-            placed = placed[:7] + placed[8:]
-        else:
-            placed = shard_to_devices(deps_args, self._mesh_shards,
-                                      self.devices)
-        t = self.profiler.lap(t, "sharded_encode", stage="encode")
-        self._note_compile_shape(*(getattr(a, "shape", None)
-                                   for a in args[:7]), kernel="sharded")
-        if self.devices is None:
-            dep_mask, _count = self._sharded_step(*placed)
-        else:
-            dep_mask, _count = self._sharded_step.run(placed)
-        mask_host = dep_mask_to_host(dep_mask)
-        t = self.profiler.lap(t, "sharded_kernel", stage="device")
-        keyed = enc.decode_key_deps(mask_host)
-        self.profiler.lap(t, "sharded_decode", stage="decode")
-        self._install_probes(probes, keyed, versions, committed_versions)
+        with span("accord.deps.upload"):
+            if self.devices is None:
+                placed = window_to_tensors(args, device=self.device)
+                placed = placed[:7] + placed[8:]
+            else:
+                placed = shard_to_devices(deps_args, self._mesh_shards,
+                                          self.devices)
+        t = self.profiler.lap(t, "sharded_encode")
+        with span("accord.deps.launch"):
+            self._note_compile_shape(*(getattr(a, "shape", None)
+                                       for a in args[:7]), kernel="sharded")
+            if self.devices is None:
+                dep_mask, _count = self._sharded_step(*placed)
+            else:
+                dep_mask, _count = self._sharded_step.run(placed)
+        with span("accord.deps.download"):
+            mask_host = dep_mask_to_host(dep_mask)
+        t = self.profiler.lap(t, "sharded_kernel")
+        with span("accord.deps.decode"):
+            keyed = enc.decode_key_deps(mask_host)
+        self.profiler.lap(t, "sharded_decode")
+        self._count_deps_flush(
+            placed if self.devices is None
+            else [a for block in placed for a in block], mask_host,
+            sum(len(es) for es in enc.entries_per))
+        with span("accord.deps.install"):
+            self._install_probes(probes, keyed, versions, committed_versions)

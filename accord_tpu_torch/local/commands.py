@@ -22,6 +22,7 @@ from accord_tpu_torch.local.command import (Command, WaitingOn,
                                       note_status_transition)
 from accord_tpu_torch.local.status import Durability, SaveStatus
 from accord_tpu_torch.local.store import SafeCommandStore
+from accord_tpu_torch.obs.profiler import span
 from accord_tpu_torch.primitives.deps import Deps, KeyDeps
 from accord_tpu_torch.primitives.keys import Key, Keys, Ranges, Route
 from accord_tpu_torch.primitives.timestamp import Ballot, Timestamp, TxnId
@@ -82,8 +83,9 @@ def calculate_deps(safe_store: SafeCommandStore, txn_id: TxnId, participants,
     # attribute it separately from the rest of the apply
     prof = safe_store.store.cpuprof
     t = prof.stage_begin() if prof is not None and prof.active else None
-    safe_store.map_reduce_active(participants, before, kinds, visit,
-                                 on_range_dep=visit_range, exclude=txn_id)
+    with span("accord.op.deps"):
+        safe_store.map_reduce_active(participants, before, kinds, visit,
+                                     on_range_dep=visit_range, exclude=txn_id)
     if t is not None:
         prof.stage_end(t, "cfk")
     return Deps(builder.build(), rbuilder.build())
@@ -160,38 +162,40 @@ def preaccept(safe_store: SafeCommandStore, txn_id: TxnId,
               ballot: Ballot = Ballot.ZERO
               ) -> Tuple[AcceptOutcome, Optional[Timestamp]]:
     """Witness the txn; propose executeAt (Commands.preaccept :131)."""
-    cmd = safe_store.get(txn_id)
-    if cmd.is_truncated or cmd.is_invalidated:
-        return AcceptOutcome.TRUNCATED, None
-    if not cmd.may_accept(ballot):
-        return AcceptOutcome.REJECTED_BALLOT, None
-    if cmd.has_been(SaveStatus.PRE_ACCEPTED):
-        # competing recovery (ballot>0) still records its promise; a zero
-        # ballot here is a replay (Commands.preacceptOrRecover :160-168)
-        cmd.set_promised(ballot)
-        return AcceptOutcome.REDUNDANT, cmd.execute_at_or_txn_id()
+    with span("accord.op.preaccept"):
+        cmd = safe_store.get(txn_id)
+        if cmd.is_truncated or cmd.is_invalidated:
+            return AcceptOutcome.TRUNCATED, None
+        if not cmd.may_accept(ballot):
+            return AcceptOutcome.REJECTED_BALLOT, None
+        if cmd.has_been(SaveStatus.PRE_ACCEPTED):
+            # competing recovery (ballot>0) still records its promise; a zero
+            # ballot here is a replay (Commands.preacceptOrRecover :160-168)
+            cmd.set_promised(ballot)
+            return AcceptOutcome.REDUNDANT, cmd.execute_at_or_txn_id()
 
-    cmd.update_route(route)
-    cmd.set_promised(ballot)
-    if partial_txn is not None:
-        cmd.partial_txn = partial_txn
-    participants = (partial_txn.keys if partial_txn is not None
-                    else route.participants())
-    if is_shard_fenced(safe_store, txn_id, participants) \
-            or is_durably_fenced(safe_store, txn_id, participants):
-        return AcceptOutcome.TRUNCATED, None
-    witnessed_at = propose_execute_at(safe_store, txn_id, participants,
-                                      permit_fast_path=ballot == Ballot.ZERO)
-    cmd.execute_at = witnessed_at
-    cmd.set_status(SaveStatus.PRE_ACCEPTED)
-    # fence later proposals with the witnessed executeAt, not the txn id
-    # (CommandStore.updateMaxConflicts :280-289 records executeAt)
-    safe_store.update_max_conflicts(participants, witnessed_at)
-    safe_store.register(cmd, InternalStatus.PREACCEPTED)
-    if txn_id.is_range_domain and partial_txn is not None:
-        safe_store.register_range_txn(cmd, partial_txn.keys)
-    safe_store.progress_log.update(safe_store.store, txn_id, cmd)
-    return AcceptOutcome.SUCCESS, witnessed_at
+        cmd.update_route(route)
+        cmd.set_promised(ballot)
+        if partial_txn is not None:
+            cmd.partial_txn = partial_txn
+        participants = (partial_txn.keys if partial_txn is not None
+                        else route.participants())
+        if is_shard_fenced(safe_store, txn_id, participants) \
+                or is_durably_fenced(safe_store, txn_id, participants):
+            return AcceptOutcome.TRUNCATED, None
+        witnessed_at = propose_execute_at(
+            safe_store, txn_id, participants,
+            permit_fast_path=ballot == Ballot.ZERO)
+        cmd.execute_at = witnessed_at
+        cmd.set_status(SaveStatus.PRE_ACCEPTED)
+        # fence later proposals with the witnessed executeAt, not the txn id
+        # (CommandStore.updateMaxConflicts :280-289 records executeAt)
+        safe_store.update_max_conflicts(participants, witnessed_at)
+        safe_store.register(cmd, InternalStatus.PREACCEPTED)
+        if txn_id.is_range_domain and partial_txn is not None:
+            safe_store.register_range_txn(cmd, partial_txn.keys)
+        safe_store.progress_log.update(safe_store.store, txn_id, cmd)
+        return AcceptOutcome.SUCCESS, witnessed_at
 
 
 # ------------------------------------------------------------------ recover --
@@ -251,31 +255,32 @@ def accept(safe_store: SafeCommandStore, txn_id: TxnId, ballot: Ballot,
            partial_deps: Deps) -> AcceptOutcome:
     """Slow-path acceptance of (executeAt, deps) at `ballot`
     (Commands.accept :219)."""
-    cmd = safe_store.get(txn_id)
-    if cmd.is_truncated or cmd.is_invalidated:
-        return AcceptOutcome.TRUNCATED
-    if not cmd.may_accept(ballot):
-        return AcceptOutcome.REJECTED_BALLOT
-    if cmd.has_been(SaveStatus.PRE_COMMITTED):
-        return AcceptOutcome.REDUNDANT
-    if not cmd.has_been(SaveStatus.PRE_ACCEPTED) \
-            and is_durably_fenced(safe_store, txn_id, participating_keys):
-        # full Infer ladder: an accept may not FRESHLY witness below the
-        # durable fence either, or a recovery's Propose could complete a
-        # decision quorum behind a quorum-established invalidation
-        # inference (coordinate/infer.py safety argument)
-        return AcceptOutcome.TRUNCATED
+    with span("accord.op.accept"):
+        cmd = safe_store.get(txn_id)
+        if cmd.is_truncated or cmd.is_invalidated:
+            return AcceptOutcome.TRUNCATED
+        if not cmd.may_accept(ballot):
+            return AcceptOutcome.REJECTED_BALLOT
+        if cmd.has_been(SaveStatus.PRE_COMMITTED):
+            return AcceptOutcome.REDUNDANT
+        if not cmd.has_been(SaveStatus.PRE_ACCEPTED) \
+                and is_durably_fenced(safe_store, txn_id, participating_keys):
+            # full Infer ladder: an accept may not FRESHLY witness below the
+            # durable fence either, or a recovery's Propose could complete a
+            # decision quorum behind a quorum-established invalidation
+            # inference (coordinate/infer.py safety argument)
+            return AcceptOutcome.TRUNCATED
 
-    cmd.update_route(route)
-    cmd.set_promised(ballot)
-    cmd.accepted_ballot = ballot
-    cmd.execute_at = execute_at
-    cmd.partial_deps = partial_deps
-    cmd.set_status(SaveStatus.ACCEPTED)
-    safe_store.update_max_conflicts(participating_keys, execute_at)
-    safe_store.register(cmd, InternalStatus.ACCEPTED)
-    safe_store.progress_log.update(safe_store.store, txn_id, cmd)
-    return AcceptOutcome.SUCCESS
+        cmd.update_route(route)
+        cmd.set_promised(ballot)
+        cmd.accepted_ballot = ballot
+        cmd.execute_at = execute_at
+        cmd.partial_deps = partial_deps
+        cmd.set_status(SaveStatus.ACCEPTED)
+        safe_store.update_max_conflicts(participating_keys, execute_at)
+        safe_store.register(cmd, InternalStatus.ACCEPTED)
+        safe_store.progress_log.update(safe_store.store, txn_id, cmd)
+        return AcceptOutcome.SUCCESS
 
 
 def preaccept_invalidate(safe_store: SafeCommandStore, txn_id: TxnId,
@@ -335,46 +340,47 @@ def commit(safe_store: SafeCommandStore, txn_id: TxnId, route: Route,
            ) -> AcceptOutcome:
     """Commit (executeAt, deps); `stable=True` also freezes deps and starts
     execution tracking (Commands.commit :306)."""
-    cmd = safe_store.get(txn_id)
-    if cmd.is_truncated:
-        return AcceptOutcome.TRUNCATED
-    if cmd.is_invalidated:
-        safe_store.agent.on_inconsistent_timestamp(cmd, None, execute_at)
-        return AcceptOutcome.TRUNCATED
-    target = SaveStatus.STABLE if stable else SaveStatus.COMMITTED
-    if cmd.has_been(target):
-        if cmd.execute_at is not None and cmd.execute_at != execute_at \
-                and cmd.save_status.is_committed_to_execute:
-            safe_store.agent.on_inconsistent_timestamp(cmd, cmd.execute_at,
-                                                       execute_at)
-        return AcceptOutcome.REDUNDANT
+    with span("accord.op.commit"):
+        cmd = safe_store.get(txn_id)
+        if cmd.is_truncated:
+            return AcceptOutcome.TRUNCATED
+        if cmd.is_invalidated:
+            safe_store.agent.on_inconsistent_timestamp(cmd, None, execute_at)
+            return AcceptOutcome.TRUNCATED
+        target = SaveStatus.STABLE if stable else SaveStatus.COMMITTED
+        if cmd.has_been(target):
+            if cmd.execute_at is not None and cmd.execute_at != execute_at \
+                    and cmd.save_status.is_committed_to_execute:
+                safe_store.agent.on_inconsistent_timestamp(cmd, cmd.execute_at,
+                                                           execute_at)
+            return AcceptOutcome.REDUNDANT
 
-    cmd.update_route(route)
-    if partial_txn is not None and cmd.partial_txn is None:
-        cmd.partial_txn = partial_txn
-    if stable and cmd.partial_txn is None and _needs_definition(cmd):
-        return AcceptOutcome.INSUFFICIENT
-    cmd.execute_at = execute_at
-    if not stable:
-        cmd.partial_deps = deps
-        cmd.set_status(SaveStatus.COMMITTED)
-        safe_store.register(cmd, InternalStatus.COMMITTED)
+        cmd.update_route(route)
+        if partial_txn is not None and cmd.partial_txn is None:
+            cmd.partial_txn = partial_txn
+        if stable and cmd.partial_txn is None and _needs_definition(cmd):
+            return AcceptOutcome.INSUFFICIENT
+        cmd.execute_at = execute_at
+        if not stable:
+            cmd.partial_deps = deps
+            cmd.set_status(SaveStatus.COMMITTED)
+            safe_store.register(cmd, InternalStatus.COMMITTED)
+            safe_store.progress_log.update(safe_store.store, txn_id, cmd)
+            return AcceptOutcome.SUCCESS
+
+        cmd.stable_deps = deps
+        cmd.set_status(SaveStatus.STABLE)
+        # stable deps in hand: any staleness-escalation counter is moot
+        safe_store.store.insufficient_catchups.pop(txn_id, None)
+        safe_store.update_max_conflicts(
+            cmd.partial_txn.keys if cmd.partial_txn is not None
+            else route.participants(), execute_at)
+        safe_store.register(cmd, InternalStatus.STABLE)
+        _maybe_register_range_txn(safe_store, cmd)
+        initialise_waiting_on(safe_store, cmd)
         safe_store.progress_log.update(safe_store.store, txn_id, cmd)
+        maybe_execute(safe_store, cmd, always_notify=True)
         return AcceptOutcome.SUCCESS
-
-    cmd.stable_deps = deps
-    cmd.set_status(SaveStatus.STABLE)
-    # stable deps in hand: any staleness-escalation counter is moot
-    safe_store.store.insufficient_catchups.pop(txn_id, None)
-    safe_store.update_max_conflicts(
-        cmd.partial_txn.keys if cmd.partial_txn is not None
-        else route.participants(), execute_at)
-    safe_store.register(cmd, InternalStatus.STABLE)
-    _maybe_register_range_txn(safe_store, cmd)
-    initialise_waiting_on(safe_store, cmd)
-    safe_store.progress_log.update(safe_store.store, txn_id, cmd)
-    maybe_execute(safe_store, cmd, always_notify=True)
-    return AcceptOutcome.SUCCESS
 
 
 def _maybe_register_range_txn(safe_store: SafeCommandStore, cmd: Command
@@ -428,33 +434,36 @@ def apply(safe_store: SafeCommandStore, txn_id: TxnId, route: Route,
           execute_at: Timestamp, deps: Optional[Deps], writes: Optional[Writes],
           result, partial_txn: Optional[PartialTxn] = None) -> ApplyOutcome:
     """Record the outcome; execute once deps clear (Commands.apply :491)."""
-    cmd = safe_store.get(txn_id)
-    if cmd.has_been(SaveStatus.PRE_APPLIED) or cmd.is_truncated \
-            or cmd.is_invalidated:
-        return ApplyOutcome.REDUNDANT
-    if cmd.execute_at is not None and cmd.has_been(SaveStatus.PRE_COMMITTED) \
-            and cmd.execute_at != execute_at:
-        safe_store.agent.on_inconsistent_timestamp(cmd, cmd.execute_at, execute_at)
+    with span("accord.op.apply"):
+        cmd = safe_store.get(txn_id)
+        if cmd.has_been(SaveStatus.PRE_APPLIED) or cmd.is_truncated \
+                or cmd.is_invalidated:
+            return ApplyOutcome.REDUNDANT
+        if cmd.execute_at is not None \
+                and cmd.has_been(SaveStatus.PRE_COMMITTED) \
+                and cmd.execute_at != execute_at:
+            safe_store.agent.on_inconsistent_timestamp(cmd, cmd.execute_at,
+                                                       execute_at)
 
-    cmd.update_route(route)
-    if partial_txn is not None and cmd.partial_txn is None:
-        cmd.partial_txn = partial_txn
-    if not cmd.has_been(SaveStatus.STABLE):
-        if deps is None:
-            return ApplyOutcome.INSUFFICIENT
-        cmd.execute_at = execute_at
-        cmd.stable_deps = deps
-        cmd.set_status(SaveStatus.STABLE)
-        safe_store.register(cmd, InternalStatus.STABLE)
-        _maybe_register_range_txn(safe_store, cmd)
-        initialise_waiting_on(safe_store, cmd)
-    cmd.writes = writes
-    cmd.result = result
-    cmd.set_status(SaveStatus.PRE_APPLIED)
-    safe_store.store.insufficient_catchups.pop(txn_id, None)
-    safe_store.progress_log.update(safe_store.store, txn_id, cmd)
-    maybe_execute(safe_store, cmd, always_notify=True)
-    return ApplyOutcome.SUCCESS
+        cmd.update_route(route)
+        if partial_txn is not None and cmd.partial_txn is None:
+            cmd.partial_txn = partial_txn
+        if not cmd.has_been(SaveStatus.STABLE):
+            if deps is None:
+                return ApplyOutcome.INSUFFICIENT
+            cmd.execute_at = execute_at
+            cmd.stable_deps = deps
+            cmd.set_status(SaveStatus.STABLE)
+            safe_store.register(cmd, InternalStatus.STABLE)
+            _maybe_register_range_txn(safe_store, cmd)
+            initialise_waiting_on(safe_store, cmd)
+        cmd.writes = writes
+        cmd.result = result
+        cmd.set_status(SaveStatus.PRE_APPLIED)
+        safe_store.store.insufficient_catchups.pop(txn_id, None)
+        safe_store.progress_log.update(safe_store.store, txn_id, cmd)
+        maybe_execute(safe_store, cmd, always_notify=True)
+        return ApplyOutcome.SUCCESS
 
 
 # -------------------------------------------------- execution ordering core --
@@ -465,18 +474,20 @@ def initialise_waiting_on(safe_store: SafeCommandStore, cmd: Command) -> None:
     still-blocking dep (Commands.initialiseWaitingOn :735 + updateWaitingOn
     :776; the key dimension is the reference's txnIds ∪ keys bitset,
     Command.java:1425-1436, cleared per key by CommandsForKey)."""
-    deps = cmd.stable_deps if cmd.stable_deps is not None else Deps.NONE
-    local = deps.slice(safe_store.ranges) if not safe_store.ranges.is_empty else deps
-    gate_keys = ()
-    if cmd.txn_id.is_key_domain and cmd.txn_id.kind.is_globally_visible \
-            and cmd.execute_at is not None:
-        gate_keys = tuple(safe_store.owned_keys_of(cmd))
-    waiting_on = WaitingOn.from_deps(local, keys=gate_keys)
-    cmd.waiting_on = waiting_on
-    for dep_id in list(waiting_on.txn_ids):
-        _update_waiting_on_dep(safe_store, cmd, dep_id)
-    for key in gate_keys:
-        _initialise_key_wait(safe_store, cmd, key)
+    with span("accord.op.waiting_on"):
+        deps = cmd.stable_deps if cmd.stable_deps is not None else Deps.NONE
+        local = deps.slice(safe_store.ranges) \
+            if not safe_store.ranges.is_empty else deps
+        gate_keys = ()
+        if cmd.txn_id.is_key_domain and cmd.txn_id.kind.is_globally_visible \
+                and cmd.execute_at is not None:
+            gate_keys = tuple(safe_store.owned_keys_of(cmd))
+        waiting_on = WaitingOn.from_deps(local, keys=gate_keys)
+        cmd.waiting_on = waiting_on
+        for dep_id in list(waiting_on.txn_ids):
+            _update_waiting_on_dep(safe_store, cmd, dep_id)
+        for key in gate_keys:
+            _initialise_key_wait(safe_store, cmd, key)
 
 
 def _initialise_key_wait(safe_store: SafeCommandStore, cmd: Command,
@@ -727,31 +738,33 @@ def maybe_execute(safe_store: SafeCommandStore, cmd: Command,
                   always_notify: bool) -> bool:
     """Advance Stable->ReadyToExecute->apply when the WaitingOn set clears
     (Commands.maybeExecute :656)."""
-    WORK["maybe_execute"] += 1
-    if cmd.save_status not in (SaveStatus.STABLE, SaveStatus.PRE_APPLIED):
-        if always_notify:
-            _notify_listeners(safe_store, cmd)
-        return False
-    if cmd.waiting_on is not None and cmd.waiting_on.is_waiting:
-        if always_notify:
-            _notify_listeners(safe_store, cmd)
-        return False
+    with span("accord.op.execute"):
+        WORK["maybe_execute"] += 1
+        if cmd.save_status not in (SaveStatus.STABLE, SaveStatus.PRE_APPLIED):
+            if always_notify:
+                _notify_listeners(safe_store, cmd)
+            return False
+        if cmd.waiting_on is not None and cmd.waiting_on.is_waiting:
+            if always_notify:
+                _notify_listeners(safe_store, cmd)
+            return False
 
-    if cmd.save_status == SaveStatus.STABLE:
-        cmd.set_status(SaveStatus.READY_TO_EXECUTE)
-        safe_store.progress_log.update(safe_store.store, cmd.txn_id, cmd)
-        _notify_listeners(safe_store, cmd)
+        if cmd.save_status == SaveStatus.STABLE:
+            cmd.set_status(SaveStatus.READY_TO_EXECUTE)
+            safe_store.progress_log.update(safe_store.store, cmd.txn_id, cmd)
+            _notify_listeners(safe_store, cmd)
+            return True
+
+        # PRE_APPLIED with no outstanding deps: run the writes — but never
+        # onto a range whose bootstrap hasn't installed its snapshot yet
+        # (applying out-of-band would interleave with the snapshot and
+        # diverge the replica; the reference defers via
+        # safeToRead/unavailableToExecute)
+        if not _safe_to_apply(safe_store, cmd):
+            return False  # re-driven by re_evaluate_waiting after bootstrap
+        cmd.set_status(SaveStatus.APPLYING)
+        _apply_writes(safe_store, cmd)
         return True
-
-    # PRE_APPLIED with no outstanding deps: run the writes — but never onto
-    # a range whose bootstrap hasn't installed its snapshot yet (applying
-    # out-of-band would interleave with the snapshot and diverge the
-    # replica; the reference defers via safeToRead/unavailableToExecute)
-    if not _safe_to_apply(safe_store, cmd):
-        return False  # re-driven by re_evaluate_waiting after bootstrap
-    cmd.set_status(SaveStatus.APPLYING)
-    _apply_writes(safe_store, cmd)
-    return True
 
 
 def _safe_to_apply(safe_store: SafeCommandStore, cmd: Command) -> bool:

@@ -21,6 +21,7 @@ from accord_tpu_torch.local.cfk import CommandsForKey, InternalStatus, Timestamp
 from accord_tpu_torch.local.command import Command
 from accord_tpu_torch.local.status import SaveStatus
 from accord_tpu_torch.local.watermarks import DurableBefore, MaxConflicts, RedundantBefore
+from accord_tpu_torch.obs.profiler import span
 from accord_tpu_torch.primitives.deps import Deps
 from accord_tpu_torch.primitives.keys import (EMPTY_KEYS, Key, Keys, Range, Ranges,
                                         RoutingKey, _SortedKeyList)
@@ -185,21 +186,24 @@ class SafeCommandStore:
         # measures conflict-index maintenance, not key-set slicing
         keys = self.owned_keys_of(command)
         t = prof.stage_begin() if prof is not None and prof.active else None
-        for key in keys:
-            dep_ids = key_deps.txn_ids_for_key(key) \
-                if key_deps is not None else None
-            cfk = cfks.get(key)
-            if cfk is None:
-                cfk = self.store._cfk(key)
-            fired = cfk.update(txn_id, status, execute_at, dep_ids=dep_ids)
-            if fired:
-                if t is not None:
-                    prof.stage_end(t, "cfk")
-                    t = None
-                for u in fired:
-                    u.callback(self)
-                if prof is not None and prof.active:
-                    t = prof.stage_begin()
+        # one span over the walk; the spans of fired callbacks nest in it
+        with span("accord.op.index"):
+            for key in keys:
+                dep_ids = key_deps.txn_ids_for_key(key) \
+                    if key_deps is not None else None
+                cfk = cfks.get(key)
+                if cfk is None:
+                    cfk = self.store._cfk(key)
+                fired = cfk.update(txn_id, status, execute_at,
+                                   dep_ids=dep_ids)
+                if fired:
+                    if t is not None:
+                        prof.stage_end(t, "cfk")
+                        t = None
+                    for u in fired:
+                        u.callback(self)
+                    if prof is not None and prof.active:
+                        t = prof.stage_begin()
         if t is not None:
             prof.stage_end(t, "cfk")
 

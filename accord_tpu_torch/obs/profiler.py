@@ -1,6 +1,8 @@
-"""Kernel-level profiler: fenced wall timers, shape ledger, flush waterfall.
+"""Kernel-level profiler: fenced wall timers, shape ledger, trace spans.
 
-A copy of ``accord_tpu/obs/profiler.py``.  Three blind spots it closes:
+A copy of ``accord_tpu/obs/profiler.py``, less its flush-window waterfall
+(the laps cover its encode, device and decode stages), plus the port's
+span hook.  What it gives:
 
   * per-kernel wall time — every device-store precompute (deps, recovery,
     range-stab, wavefront, sharded) is split into encode / device / decode
@@ -11,18 +13,24 @@ A copy of ``accord_tpu/obs/profiler.py``.  Three blind spots it closes:
     sighting is one XLA compile; in the port, which compiles each kernel
     once, it counts shapes), counted ALWAYS (a set lookup), independent of
     sampling;
-  * the flush-window waterfall — queue-wait -> encode -> device -> decode
-    per drained window, so the latency tax of the batching tier is
-    decomposable instead of one opaque number.
+  * trace spans — `span(name)` opens a range of the factory that
+    `set_tracer` installed, so the store's phases (``accord.flush``,
+    ``accord.deps.*``, ``accord.waves.*``, ``accord.op.*``) land on the
+    timeline of whatever records those ranges (``torch.profiler``'s trace
+    under ``torch._C._profiler._RecordFunctionFast`` or
+    ``torch.autograd.profiler.record_function``, Nsight under
+    ``torch.cuda.nvtx.range``).  With no tracer installed `span` hands back
+    one shared null context: no clock read, no allocation, no registry.
 
 OFF BY DEFAULT on the hot path: `ACCORD_PROFILE=N` samples 1-in-N flush
 windows (N=1 profiles every window; unset/0 disables timing entirely —
 only the retrace ledger stays on).  When a window is not sampled, `begin`
 returns None and every `lap` is a single early-returning call.
 
-No torch or numpy imports here.  Fencing is the CALLER's job — device
-layers end each lap with a host copy (``.cpu()``) or pass an explicit fence
-callable to `lap`; this module only reads the clock.
+No torch or numpy imports here: whoever turns tracing on passes the
+factory in.  Fencing is the CALLER's job — device layers end each lap
+with a host copy (``.cpu()``) or pass an explicit fence callable to
+`lap`; this module only reads the clock.
 
 `ACCORD_PROFILE_SCALE` (float, default 1) scales measured durations — a
 test hook letting the bench's `--guard` regression gate be exercised with
@@ -31,13 +39,36 @@ a synthetic slowdown (the JAX package's tests/test_bench_guard.py).
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Callable, ContextManager, Dict, List, Optional
 
 # raw-sample cap per kernel: exact p50/p99 without unbounded growth (the
 # registry histograms keep the full log2-bucketed stream regardless)
 _MAX_SAMPLES = 512
+
+# the context every span site enters while no tracer is installed; entering
+# a nullcontext does nothing, so one instance serves every site and thread
+_NULL_SPAN = contextlib.nullcontext()
+# name -> context manager, or None: process-wide, as the profilers that
+# record the ranges are
+_tracer: Optional[Callable[[str], ContextManager]] = None
+
+
+def set_tracer(factory: Optional[Callable[[str], ContextManager]]) -> None:
+    """Install `factory` (name -> context manager) as the range every
+    `span` opens, or remove it with None."""
+    global _tracer
+    _tracer = factory
+
+
+def span(name: str) -> ContextManager:
+    """A range called `name` of the installed tracer, or the shared null
+    context when none is installed.  Sites put no span inside a per-key or
+    per-dep loop."""
+    factory = _tracer
+    return _NULL_SPAN if factory is None else factory(name)
 
 
 class Profiler:
@@ -45,15 +76,12 @@ class Profiler:
 
     Registry metrics:
       accord_profile_kernel_us{kernel=...}   histogram — per-lap wall time
-      accord_profile_window_us{stage=...}    histogram — waterfall stages
       accord_profile_retraces_total{kernel=...}  counter — shape-bucket
                                                  first-sightings (compiles)
-      accord_profile_windows_sampled_total   counter — sampled windows
     """
 
     __slots__ = ("registry", "sample_n", "enabled", "_clock", "_scale",
-                 "_tick", "_window_active", "_stage_acc", "_samples",
-                 "_shapes")
+                 "_tick", "_window_active", "_samples", "_shapes")
 
     def __init__(self, registry, sample_n: int = 0, clock=None):
         self.registry = registry
@@ -66,7 +94,6 @@ class Profiler:
             self._scale = 1.0
         self._tick = 0
         self._window_active = False
-        self._stage_acc: Dict[str, float] = {}
         self._samples: Dict[str, List[float]] = {}
         self._shapes: Dict[str, set] = {}
 
@@ -83,31 +110,17 @@ class Profiler:
                                   kernel=kernel).inc()
 
     # ------------------------------------------------------- window timing --
-    def window_begin(self, opened_at: Optional[float]) -> bool:
-        """Called at flush start with the wall time of the window's first
-        _submit (or None).  Decides sampling for this window and records
-        the queue-wait waterfall stage.  Returns whether sampling is on."""
+    def window_begin(self) -> bool:
+        """Called at flush start: decides whether this window is sampled.
+        Returns whether sampling is on."""
         if not self.enabled:
             return False
         self._tick += 1
-        if self._tick % self.sample_n:
-            self._window_active = False
-            return False
-        self._window_active = True
-        self._stage_acc = {}
-        self.registry.counter("accord_profile_windows_sampled_total").inc()
-        if opened_at is not None:
-            self._observe_stage("queue_wait",
-                                self._clock() - opened_at)
-        return True
+        self._window_active = self._tick % self.sample_n == 0
+        return self._window_active
 
     def window_end(self) -> None:
-        """Flush the sampled window's accumulated waterfall stages."""
-        if not self._window_active:
-            return
-        for stage, dur in self._stage_acc.items():
-            self._observe_stage(stage, dur)
-        self._stage_acc = {}
+        """End the window: laps are off until the next sampled one."""
         self._window_active = False
 
     def begin(self) -> Optional[float]:
@@ -116,9 +129,9 @@ class Profiler:
         return self._clock() if self._window_active else None
 
     def lap(self, t: Optional[float], kernel: str,
-            stage: Optional[str] = None, fence=None) -> Optional[float]:
-        """End a lap started at `t`: record wall time for `kernel` (and
-        accumulate into waterfall `stage`).  Returns the new lap start.
+            fence=None) -> Optional[float]:
+        """End a lap started at `t`: record wall time for `kernel`.
+        Returns the new lap start.
         `fence` (e.g. torch.cuda.synchronize) runs INSIDE the lap — the
         caller injects synchronization.  Callers whose lap already ends in
         a host copy pass no fence: the copy IS the fence."""
@@ -136,13 +149,7 @@ class Profiler:
             samples = self._samples[kernel] = []
         if len(samples) < _MAX_SAMPLES:
             samples.append(us)
-        if stage is not None:
-            self._stage_acc[stage] = self._stage_acc.get(stage, 0.0) + dur
         return now
-
-    def _observe_stage(self, stage: str, dur_s: float) -> None:
-        self.registry.histogram("accord_profile_window_us", stage=stage) \
-            .observe(dur_s * self._scale * 1e6)
 
     # ------------------------------------------------------------- summary --
     def summary(self) -> dict:

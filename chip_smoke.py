@@ -300,6 +300,8 @@ DEFAULT_EDGES = 1_152_177
 # phase 13's store history (txns), cut from 16,384 so that phase 17 fits
 # in the script's time
 STORE_HISTORY = 4_096
+# the stage of a store's profiler lap, by the lap's suffix
+LAP_STAGES = {"encode": "encode", "kernel": "device", "decode": "decode"}
 # phase 18's soak seeds: (arm, seed, the kernel lap of its deps flushes).
 # 57012 is the range-heavy 25%-loss seed that failed the reference's first
 # soak wave (SOAK_NOTES.md:164-198); 58000 runs the 8-store contended mesh
@@ -850,7 +852,6 @@ def main() -> int:
     from accord_tpu_torch.utils.backend import card_name_and_power_limit
     from accord_tpu_torch.utils.random_source import RandomSource
     from accord_tpu_torch.utils.timing import median_ms
-    from accord_tpu_torch.obs.registry import parse_labels
     from accord_tpu_torch.sim import burn
     from accord_tpu_torch.soak import EXPECTED_LINES as SOAK_LINES
     from accord_tpu_torch.soak import load_expected
@@ -1871,14 +1872,12 @@ def main() -> int:
               and not any(n.agent.failures for n in run.built),
               f"{name}: a store left its device tier or an agent failed")
         # every store's profiler laps, summed over the nodes' registries:
-        # (count, ms) a kernel lap and ms a waterfall stage
+        # (count, ms) a kernel lap, and ms a stage (each lap's suffix)
         snaps = [n.obs.registry.snapshot() for n in run.built]
         laps, stages = bench.summed_profile_laps(snaps), {}
-        for snap in snaps:
-            hists = snap["histograms"]
-            for lk, h in hists.get("accord_profile_window_us", {}).items():
-                st = parse_labels(lk)["stage"]
-                stages[st] = stages.get(st, 0.0) + h["sum"] / 1e3
+        for lap, (_count, ms) in laps.items():
+            st = LAP_STAGES.get(lap.rsplit("_", 1)[-1], lap)
+            stages[st] = stages.get(st, 0.0) + ms
         summed = {c: sum(getattr(s, c) for s in stores)
                   for c in ("device_batches", "device_wave_batches")}
         # the restarted nodes' live incarnations: the replayed windows

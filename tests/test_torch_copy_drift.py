@@ -29,6 +29,13 @@ DEVIATIONS = {
     "ops/wavefront.py": "the wavefront in torch, K2's plain version",
     "utils/backend.py": "device selection: the card, or the CPU if asked",
     "impl/device_store.py": "flush windows resolved by the port's kernels; "
+                            "the flush, its deps and wave arms' phases, "
+                            "the recovery and range arms are spans "
+                            "(obs/profiler.span) tiling the laps, the "
+                            "window's body is _run_window, and the store "
+                            "counts its copies' bytes, encoded entries, "
+                            "served deps and each plan's wave depth; no "
+                            "queue-wait stamp (the waterfall is gone); "
                             "device= raises without a card; no mesh "
                             "attribute: the mesh store stacks its shards "
                             "or spreads them over the cards it is given "
@@ -38,7 +45,19 @@ DEVIATIONS = {
                             "reference's int32 encoding overflows and the "
                             "store leaves its device tier",
     "obs/profiler.py": "laps fenced by a host copy; counts shapes, not "
-                       "XLA compiles",
+                       "XLA compiles; no flush-window waterfall (its "
+                       "histogram, sampled-window counter and queue-wait "
+                       "stage had no reader: the laps cover its stages); "
+                       "the span hook (set_tracer, span) the store and "
+                       "local/ open their trace ranges through",
+    "obs/__init__.py": "docstring: the profiler's span hook and the "
+                       "store's span names and counters; exports "
+                       "set_tracer and span",
+    "local/commands.py": "the transitions, calculate_deps' scan, WaitingOn "
+                         "set-up and maybe_execute open accord.op.* spans "
+                         "(obs/profiler.span)",
+    "local/store.py": "register's per-key index walk is the accord.op.index "
+                      "span (obs/profiler.span)",
     # the burn's CLI: where the device stores run
     "sim/burn.py": "--device {cuda,cpu} passed to the store factories "
                    "(the delayed-store composition included), no platform "
