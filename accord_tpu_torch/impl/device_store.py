@@ -557,6 +557,11 @@ class DeviceCommandStore(CommandStore):
         self.device_copy_bytes = CounterDict(
             registry, "accord_device_copy_bytes_total", ("h2d", "d2h"),
             label="dir", store=store_id)
+        # each deps flush's encoder tier: the native core's pass, or the
+        # Python tier where the core did not load
+        self.device_encode_windows = CounterDict(
+            registry, "accord_device_encode_windows_total",
+            ("native", "python"), label="tier", store=store_id)
         # each planned window's wave depth (device_wave_max_depth its max)
         self.device_wave_depths = registry.histogram(
             "accord_device_wave_depth", store=store_id)
@@ -765,16 +770,20 @@ class DeviceCommandStore(CommandStore):
         with span("accord.deps.decode"):
             keyed = enc.decode_key_deps(mask_host)
         self.profiler.lap(t, "deps_decode")
-        self._count_deps_flush(placed, mask_host, len(enc.entries))
+        self._count_deps_flush(placed, mask_host, enc.state.num_entries,
+                               enc.tier)
         with span("accord.deps.install"):
             self._install_probes(probes, keyed, versions, committed_versions)
 
-    def _count_deps_flush(self, placed, mask_host, entries: int) -> None:
+    def _count_deps_flush(self, placed, mask_host, entries: int,
+                          tier: str) -> None:
         """One deps flush's counters: the bytes of the tensors it sent to
-        the device and of the mask it read back, and the entries encoded."""
+        the device and of the mask it read back, the entries encoded and
+        the encoder's tier (``native`` or ``python``)."""
         self.device_copy_bytes["h2d"] += sum(a.nbytes for a in placed)
         self.device_copy_bytes["d2h"] += mask_host.nbytes
         self.device_encoded_entries += entries
+        self.device_encode_windows[tier] += 1
 
     def _precompute_recovery(self, window) -> None:
         """Batch every declared recovery probe (BeginRecovery's four
@@ -1155,6 +1164,6 @@ class MeshDeviceCommandStore(DeviceCommandStore):
         self._count_deps_flush(
             placed if self.devices is None
             else [a for block in placed for a in block], mask_host,
-            sum(len(es) for es in enc.entries_per))
+            sum(len(es) for es in enc.entries_per), "python")
         with span("accord.deps.install"):
             self._install_probes(probes, keyed, versions, committed_versions)

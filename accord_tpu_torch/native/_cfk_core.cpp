@@ -17,6 +17,12 @@
  *       (replacing the per-call set()/sorted() allocations)
  *   map_reduce_active      — the deps scan with transitive elision
  *
+ * and the device encoder's walk over the same arrays (ops/encode.py's
+ * BatchEncoder): encode_window reads a flush window's timestamp universe
+ * from the CFKs' lists, sorts and ranks it, and writes the int32 entry
+ * columns and the batch's ranks, one C pass where the Python tier builds
+ * a set, a sorted list, a rank dict and a tuple per entry.
+ *
  * BIT-IDENTITY CONTRACT (same precedent as _wire_codec.cpp): every function
  * must leave the arrays in exactly the state the Python tier would — the
  * differential suite (tests/test_cfk_native.py) cross-checks randomized op
@@ -37,10 +43,17 @@
 #define PY_SSIZE_T_CLEAN
 #include <Python.h>
 
+#include <algorithm>
+#include <cstdint>
+#include <vector>
+
 namespace {
 
 PyObject *s_cmp = nullptr;    /* interned "_cmp" */
 PyObject *s_flags = nullptr;  /* interned "flags" */
+PyObject *s_ids = nullptr;    /* interned "_ids" */
+PyObject *s_status = nullptr; /* interned "_status" */
+PyObject *s_eat = nullptr;    /* interned "_eat" */
 
 /* InternalStatus bands (accord_tpu_torch.local.cfk.InternalStatus) */
 constexpr long ST_TRANSITIVELY_KNOWN = 0;
@@ -544,6 +557,290 @@ PyObject *pos(PyObject *, PyObject *args) {
     return PyLong_FromSsize_t(-i - 1);
 }
 
+/* ---- encode_window: the device encoder's walk (ops/encode.py,
+ * BatchEncoder).  A timestamp's _cmp (epoch 48b | hlc 64b | flags 16b |
+ * node 32b) is read as three 64-bit words, most significant first, so
+ * word order and equality are _cmp's, which Timestamp's __lt__, __eq__ and
+ * __hash__ read. */
+struct Key3 {
+    uint64_t w[3];
+};
+
+inline bool key_eq(const Key3 &a, const Key3 &b) {
+    return a.w[0] == b.w[0] && a.w[1] == b.w[1] && a.w[2] == b.w[2];
+}
+
+/* an int _cmp -> its three words; -1 on error (negative or too wide) */
+int cmp_to_key(PyObject *c, Key3 *out) {
+    if (!PyLong_Check(c)) {
+        PyErr_SetString(PyExc_TypeError, "_cmp must be an int");
+        return -1;
+    }
+    unsigned char b[24];
+#if PY_VERSION_HEX >= 0x030D0000
+    Py_ssize_t need = PyLong_AsNativeBytes(
+        c, b, 24, Py_ASNATIVEBYTES_LITTLE_ENDIAN
+                      | Py_ASNATIVEBYTES_UNSIGNED_BUFFER
+                      | Py_ASNATIVEBYTES_REJECT_NEGATIVE);
+    if (need < 0) return -1;
+    if (need > 24) {
+        PyErr_SetString(PyExc_OverflowError, "_cmp wider than 192 bits");
+        return -1;
+    }
+#else
+    if (_PyLong_AsByteArray((PyLongObject *)c, b, 24, 1, 0) < 0) return -1;
+#endif
+    for (int k = 0; k < 3; ++k) {
+        uint64_t v = 0;
+        for (int j = 7; j >= 0; --j) v = (v << 8) | b[8 * k + j];
+        out->w[2 - k] = v;
+    }
+    return 0;
+}
+
+/* Where a type keeps _cmp: the byte offset of its __slots__ member when
+ * attribute lookup on it is the generic one (so reading the slot is what
+ * getattr does), else -1 and the caller asks getattr.  The window's
+ * objects are a few types, so the last one is cached. */
+struct SlotCache {
+    PyTypeObject *type = nullptr;
+    Py_ssize_t offset = -1;
+
+    Py_ssize_t offset_of(PyTypeObject *tp) {
+        if (tp == type) return offset;
+        type = tp;
+        offset = -1;
+        if (tp->tp_getattro != PyObject_GenericGetAttr) return offset;
+        PyObject *d = _PyType_Lookup(tp, s_cmp);  /* borrowed */
+        if (d != nullptr && Py_IS_TYPE(d, &PyMemberDescr_Type)) {
+            PyMemberDef *m = ((PyMemberDescrObject *)d)->d_member;
+            if (m->type == Py_T_OBJECT_EX) offset = m->offset;
+        }
+        return offset;
+    }
+};
+
+/* one timestamp of the window: where its rank goes (an entry's id or
+ * executeAt, or a batch row), and the object, borrowed from a list the
+ * call holds.  Items are numbered in the Python tier's set insertion
+ * order, which picks the object the universe keeps. */
+enum Dest : uint8_t { DEST_ID, DEST_EAT, DEST_BATCH };
+
+struct Item {
+    PyObject *obj;
+    uint32_t idx;
+    Dest dest;
+};
+
+/* what is sorted: the key and the item's number, 32 bytes */
+struct SortKey {
+    Key3 key;
+    uint32_t seq;
+};
+
+inline bool sort_lt(const SortKey &a, const SortKey &b) {
+    if (a.key.w[0] != b.key.w[0]) return a.key.w[0] < b.key.w[0];
+    unsigned __int128 x = ((unsigned __int128)a.key.w[1] << 64) | a.key.w[2];
+    unsigned __int128 y = ((unsigned __int128)b.key.w[1] << 64) | b.key.w[2];
+    if (x != y) return x < y;
+    return a.seq < b.seq;
+}
+
+/* every item's key, into keys[i].  The objects lie scattered over the
+ * heap, so the walk is a software pipeline: the object PREFETCH items
+ * ahead is fetched, and the _cmp int of the one half as far ahead, whose
+ * object has arrived. */
+int read_keys(const std::vector<Item> &items, std::vector<SortKey> &keys) {
+    constexpr size_t PREFETCH = 16;
+    SlotCache cache;
+    size_t n = items.size();
+    keys.resize(n);
+    auto cmp_of = [&cache](PyObject *o) -> PyObject * {
+        Py_ssize_t off = cache.offset_of(Py_TYPE(o));
+        return off >= 0 ? *(PyObject **)((char *)o + off) : nullptr;
+    };
+    for (size_t i = 0; i < n; ++i) {
+        if (i + PREFETCH < n) __builtin_prefetch(items[i + PREFETCH].obj);
+        if (i + PREFETCH / 2 < n) {
+            PyObject *ahead = cmp_of(items[i + PREFETCH / 2].obj);
+            if (ahead != nullptr) __builtin_prefetch(ahead);
+        }
+        keys[i].seq = (uint32_t)i;
+        PyObject *c = cmp_of(items[i].obj);
+        int rc;
+        if (c != nullptr) {
+            rc = cmp_to_key(c, &keys[i].key);
+        } else {
+            c = get_cmp(items[i].obj);  /* any other type, or unset slot */
+            if (c == nullptr) return -1;
+            rc = cmp_to_key(c, &keys[i].key);
+            Py_DECREF(c);
+        }
+        if (rc < 0) return -1;
+    }
+    return 0;
+}
+
+/* encode_window(cfks, key_index, batch_ts, kind_bits, entry_rank,
+ *               entry_eat_rank, entry_key, entry_status, entry_kind,
+ *               txn_rank) -> universe
+ *
+ * cfks: the window's CommandsForKey in entry order; key_index[c] the key
+ * column of cfks[c]; batch_ts the batch's timestamps; kind_bits bit k set
+ * for each valid TxnKind k.  The six int32 buffers, already padded, take
+ * the first E (or B) values.  The universe is the sorted distinct
+ * timestamps, each the object the Python tier's set keeps: the first
+ * inserted of batch_ts, then each CFK's ids and its executeAts. */
+PyObject *encode_window(PyObject *, PyObject *args) {
+    PyObject *cfks, *key_index, *batch_obj;
+    long kind_bits;
+    Py_buffer bufs[6];
+    if (!PyArg_ParseTuple(args, "OO!Olw*w*w*w*w*w*", &cfks, &PyList_Type,
+                          &key_index, &batch_obj, &kind_bits, &bufs[0],
+                          &bufs[1], &bufs[2], &bufs[3], &bufs[4], &bufs[5]))
+        return nullptr;
+    int32_t *entry_rank = (int32_t *)bufs[0].buf;
+    int32_t *entry_eat_rank = (int32_t *)bufs[1].buf;
+    int32_t *entry_key = (int32_t *)bufs[2].buf;
+    int32_t *entry_status = (int32_t *)bufs[3].buf;
+    int32_t *entry_kind = (int32_t *)bufs[4].buf;
+    int32_t *txn_rank = (int32_t *)bufs[5].buf;
+
+    PyObject *result = nullptr, *universe = nullptr;
+    PyObject *cfk_seq = nullptr, *batch = nullptr;
+    std::vector<PyObject *> lists;  /* owned: each CFK's _ids, _status, _eat */
+    std::vector<Item> items;
+    std::vector<SortKey> keys;
+    std::vector<uint32_t> eat_is_id;  /* entries whose executeAt is their id */
+    std::vector<PyObject *> reps;     /* the universe, borrowed */
+    Py_ssize_t n_cfks, n_batch, n = 0, e = 0;
+    bool err = false;
+
+    cfk_seq = PySequence_Fast(cfks, "cfks must be a sequence");
+    if (cfk_seq == nullptr) goto done;
+    batch = PySequence_Fast(batch_obj, "batch_ts must be a sequence");
+    if (batch == nullptr) goto done;
+    n_cfks = PySequence_Fast_GET_SIZE(cfk_seq);
+    n_batch = PySequence_Fast_GET_SIZE(batch);
+    if (PyList_GET_SIZE(key_index) != n_cfks) {
+        PyErr_SetString(PyExc_ValueError, "one key index a CFK");
+        goto done;
+    }
+    lists.reserve(3 * n_cfks);
+    for (Py_ssize_t c = 0; c < n_cfks; ++c) {
+        PyObject *cfk = PySequence_Fast_GET_ITEM(cfk_seq, c);
+        PyObject *names[3] = {s_ids, s_status, s_eat};
+        for (PyObject *name : names) {
+            PyObject *l = PyObject_GetAttr(cfk, name);
+            if (l == nullptr) goto done;
+            lists.push_back(l);
+            if (!PyList_Check(l)) {
+                PyErr_SetString(PyExc_TypeError, "a CFK's arrays are lists");
+                goto done;
+            }
+        }
+        Py_ssize_t m = PyList_GET_SIZE(lists[3 * c]);
+        if (PyList_GET_SIZE(lists[3 * c + 1]) != m
+            || PyList_GET_SIZE(lists[3 * c + 2]) != m) {
+            PyErr_SetString(PyExc_ValueError, "a CFK's arrays differ in length");
+            goto done;
+        }
+        n += m;
+    }
+    for (int i = 0; i < 5; ++i) {
+        if (bufs[i].len < n * (Py_ssize_t)sizeof(int32_t)) {
+            PyErr_SetString(PyExc_ValueError, "an entry buffer is too short");
+            goto done;
+        }
+    }
+    if (bufs[5].len < n_batch * (Py_ssize_t)sizeof(int32_t)) {
+        PyErr_SetString(PyExc_ValueError, "the batch buffer is too short");
+        goto done;
+    }
+    if (2 * n + n_batch > (Py_ssize_t)INT32_MAX) {
+        PyErr_SetString(PyExc_OverflowError, "window too large for int32");
+        goto done;
+    }
+
+    /* the items in the Python tier's insertion order: the batch, then each
+     * CFK's ids and its set executeAts; the key, status and kind columns */
+    items.reserve(2 * n + n_batch);
+    for (Py_ssize_t i = 0; i < n_batch; ++i) {
+        items.push_back({PySequence_Fast_GET_ITEM(batch, i), (uint32_t)i,
+                         DEST_BATCH});
+    }
+    for (Py_ssize_t c = 0; c < n_cfks; ++c) {
+        PyObject *ids = lists[3 * c], *status = lists[3 * c + 1],
+                 *eat = lists[3 * c + 2];
+        long ki = PyLong_AsLong(PyList_GET_ITEM(key_index, c));
+        if (ki == -1 && PyErr_Occurred()) goto done;
+        Py_ssize_t m = PyList_GET_SIZE(ids);
+        for (Py_ssize_t j = 0; j < m; ++j) {
+            long st = status_at(status, j, &err);
+            if (err) goto done;
+            entry_key[e + j] = (int32_t)ki;
+            entry_status[e + j] = (int32_t)st;
+            items.push_back({PyList_GET_ITEM(ids, j), (uint32_t)(e + j),
+                             DEST_ID});
+        }
+        for (Py_ssize_t j = 0; j < m; ++j) {
+            PyObject *x = PyList_GET_ITEM(eat, j);
+            if (x == Py_None)
+                eat_is_id.push_back((uint32_t)(e + j));
+            else
+                items.push_back({x, (uint32_t)(e + j), DEST_EAT});
+        }
+        e += m;
+    }
+    if (read_keys(items, keys) < 0) goto done;
+    for (size_t i = 0; i < items.size(); ++i) {
+        if (items[i].dest != DEST_ID) continue;
+        long flags = (long)((keys[i].key.w[2] >> 32) & 0xFFFF);
+        long kind = kind_of(flags);
+        if (!((kind_bits >> kind) & 1)) {
+            PyErr_Format(PyExc_ValueError, "no TxnKind in flags 0x%x",
+                         (int)flags);
+            goto done;
+        }
+        entry_kind[items[i].idx] = (int32_t)kind;
+    }
+
+    /* sort by (key, insertion order): each run of equal keys is one rank,
+     * and its first item is the object the Python tier's set kept */
+    std::sort(keys.begin(), keys.end(), sort_lt);
+    {
+        int32_t r = -1;
+        for (size_t i = 0; i < keys.size(); ++i) {
+            const Item &it = items[keys[i].seq];
+            if (i == 0 || !key_eq(keys[i].key, keys[i - 1].key)) {
+                ++r;
+                reps.push_back(it.obj);
+            }
+            switch (it.dest) {
+            case DEST_ID: entry_rank[it.idx] = r; break;
+            case DEST_EAT: entry_eat_rank[it.idx] = r; break;
+            case DEST_BATCH: txn_rank[it.idx] = r; break;
+            }
+        }
+    }
+    for (uint32_t i : eat_is_id) entry_eat_rank[i] = entry_rank[i];
+    universe = PyList_New((Py_ssize_t)reps.size());
+    if (universe == nullptr) goto done;
+    for (size_t i = 0; i < reps.size(); ++i) {
+        Py_INCREF(reps[i]);
+        PyList_SET_ITEM(universe, (Py_ssize_t)i, reps[i]);
+    }
+    result = universe;
+    universe = nullptr;
+done:
+    Py_XDECREF(universe);
+    for (PyObject *l : lists) Py_DECREF(l);
+    Py_XDECREF(batch);
+    Py_XDECREF(cfk_seq);
+    for (Py_buffer &b : bufs) PyBuffer_Release(&b);
+    return result;
+}
+
 PyMethodDef methods[] = {
     {"add_missing_everywhere", add_missing_everywhere, METH_VARARGS,
      "record a newly-witnessed undecided id in every bounded missing[]"},
@@ -555,6 +852,8 @@ PyMethodDef methods[] = {
      "install an entry's missing[] divergence, wdeps and dep additions"},
     {"map_reduce_active", map_reduce_active, METH_VARARGS,
      "the active-conflict deps scan with transitive elision"},
+    {"encode_window", encode_window, METH_VARARGS,
+     "a flush window's sorted timestamp universe and int32 rank columns"},
     {nullptr, nullptr, 0, nullptr},
 };
 
@@ -569,6 +868,11 @@ PyModuleDef moduledef = {
 extern "C" PyMODINIT_FUNC PyInit__accord_cfk(void) {
     s_cmp = PyUnicode_InternFromString("_cmp");
     s_flags = PyUnicode_InternFromString("flags");
-    if (s_cmp == nullptr || s_flags == nullptr) return nullptr;
+    s_ids = PyUnicode_InternFromString("_ids");
+    s_status = PyUnicode_InternFromString("_status");
+    s_eat = PyUnicode_InternFromString("_eat");
+    if (s_cmp == nullptr || s_flags == nullptr || s_ids == nullptr
+        || s_status == nullptr || s_eat == nullptr)
+        return nullptr;
     return PyModule_Create(&moduledef);
 }

@@ -30,6 +30,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from accord_tpu_torch import native
 from accord_tpu_torch.utils.backend import resolve_device
 from accord_tpu_torch.local.cfk import CommandsForKey, InternalStatus
 from accord_tpu_torch.primitives.keys import Key
@@ -42,6 +43,9 @@ STATUS_INACTIVE = int(InternalStatus.INVALID_OR_TRUNCATED)
 # (cfk.max_committed_write_before).  Derived from the property so the device
 # predicate has a single source of truth.
 WRITE_KIND_MASK = sum(1 << int(k) for k in TxnKind if k.is_write)
+# bit k set <=> k is a TxnKind: the native encoder raises on an id whose
+# kind bits are not one, as TxnId.kind does
+_KIND_BITS = sum(1 << int(k) for k in TxnKind)
 
 
 def _pad_to(n: int, pad: int) -> int:
@@ -139,55 +143,86 @@ class BatchEncoder:
         """Shared window setup: `rows` = (timestamp, wmask, kind, keys) per
         batch item — the only place the two constructors differ."""
         self.pad = pad
-        self.keys: List[Key] = sorted({c.key for c in cfks}
-                                      | {k for ts, _, _, ks in rows
-                                         for k in ks})
-        self.key_index: Dict[Key, int] = {k: i for i, k in enumerate(self.keys)}
+        cfks = list(cfks)
+        # the key universe, sorted by token as Key orders and hashes (and
+        # Keys sorts): for each token the first Key seen, the CFKs' keys
+        # before the rows'
+        by_token: Dict[int, Key] = {}
+        for c in cfks:
+            by_token.setdefault(c.key.token, c.key)
+        for _, _, _, ks in rows:
+            for k in ks:
+                by_token.setdefault(k.token, k)
+        tokens = sorted(by_token)
+        self.keys: List[Key] = [by_token[t] for t in tokens]
+        column = {t: i for i, t in enumerate(tokens)}
         self.batch = list(batch)
-        self.universe, self.rank = collect_universe(
-            cfks, [ts for ts, _, _, _ in rows])
-        self._encode_state(cfks)
-        self._encode_batch(rows)
-
-    def _encode_state(self, cfks: Sequence[CommandsForKey]) -> None:
-        entries: List[Tuple[int, TxnId, InternalStatus, object]] = []
+        # the decoder's flat TxnId column: entry e's id, CFK after CFK
+        self.entry_ids: List[TxnId] = []
         for cfk in cfks:
-            ki = self.key_index[cfk.key]
+            self.entry_ids.extend(cfk._ids)
+        n = len(self.entry_ids)
+        e = _pad_to(max(1, n), self.pad)
+        self.state = DeviceState(
+            np.full(e, -1, np.int32), np.full(e, -1, np.int32),
+            np.zeros(e, np.int32), np.full(e, STATUS_INACTIVE, np.int32),
+            np.zeros(e, np.int32), n, len(self.keys))
+        txn_rank = np.full(_pad_to(max(1, len(rows)), self.pad), -1, np.int32)
+        batch_ts = [ts for ts, _, _, _ in rows]
+        key_cols = [column[c.key.token] for c in cfks]
+        core = native.get_cfk()
+        self.tier = "python" if core is None else "native"
+        if core is None:
+            self._encode_python(cfks, key_cols, batch_ts, txn_rank)
+        else:
+            s = self.state
+            self.universe = core.encode_window(
+                cfks, key_cols, batch_ts, _KIND_BITS, s.entry_rank,
+                s.entry_eat_rank, s.entry_key, s.entry_status, s.entry_kind,
+                txn_rank)
+            self._rank = None
+        self._encode_batch(rows, txn_rank, column)
+
+    @property
+    def rank(self) -> Dict[Timestamp, int]:
+        """{Timestamp: its index in the universe}, built when first read."""
+        if self._rank is None:
+            self._rank = {t: i for i, t in enumerate(self.universe)}
+        return self._rank
+
+    def _encode_python(self, cfks: Sequence[CommandsForKey],
+                       key_cols: Sequence[int], batch_ts: Sequence[Timestamp],
+                       txn_rank: np.ndarray) -> None:
+        """The Python tier of the entry columns and the batch's ranks:
+        bit-identical to the native core's ``encode_window``."""
+        self.universe, self._rank = collect_universe(cfks, batch_ts)
+        rank, s = self._rank, self.state
+        i = 0
+        for cfk, ki in zip(cfks, key_cols):
             ids, statuses, eats, _missing = cfk.as_arrays()
             for tid, status, eat in zip(ids, statuses, eats):
-                entries.append((ki, tid, status, eat))
-        self.entries = entries
-
-        e = _pad_to(max(1, len(entries)), self.pad)
-        entry_rank = np.full(e, -1, np.int32)
-        entry_eat_rank = np.full(e, -1, np.int32)
-        entry_key = np.zeros(e, np.int32)
-        entry_status = np.full(e, STATUS_INACTIVE, np.int32)
-        entry_kind = np.zeros(e, np.int32)
-        for i, (ki, tid, status, eat) in enumerate(entries):
-            entry_rank[i] = self.rank[tid]
-            entry_eat_rank[i] = self.rank[eat]
-            entry_key[i] = ki
-            entry_status[i] = int(status)
-            entry_kind[i] = int(tid.kind)
-        self.state = DeviceState(entry_rank, entry_eat_rank, entry_key,
-                                 entry_status, entry_kind,
-                                 len(entries), len(self.keys))
+                s.entry_rank[i] = rank[tid]
+                s.entry_eat_rank[i] = rank[eat]
+                s.entry_key[i] = ki
+                s.entry_status[i] = int(status)
+                s.entry_kind[i] = int(tid.kind)
+                i += 1
+        for i, ts in enumerate(batch_ts):
+            txn_rank[i] = rank[ts]
 
     def _encode_batch(self, rows: Sequence[Tuple[Timestamp, int, int,
-                                                 Sequence[Key]]]) -> None:
-        b = _pad_to(max(1, len(rows)), self.pad)
+                                                 Sequence[Key]]],
+                      txn_rank: np.ndarray, column: Dict[int, int]) -> None:
+        b = len(txn_rank)
         k = _pad_to(max(1, len(self.keys)), self.pad)
-        txn_rank = np.full(b, -1, np.int32)
         txn_wmask = np.zeros(b, np.int32)
         txn_kind = np.zeros(b, np.int32)
         touches = np.zeros((b, k), bool)
-        for i, (ts, wmask, kind, ks) in enumerate(rows):
-            txn_rank[i] = self.rank[ts]
+        for i, (_ts, wmask, kind, _ks) in enumerate(rows):
             txn_wmask[i] = wmask
             txn_kind[i] = kind
-            for key in ks:
-                touches[i, self.key_index[key]] = True
+        touches[[i for i, (_, _, _, ks) in enumerate(rows) for _ in ks],
+                [column[k.token] for _, _, _, ks in rows for k in ks]] = True
         self.dbatch = DeviceBatch(txn_rank, txn_wmask, txn_kind, touches,
                                   len(rows))
 
@@ -195,22 +230,23 @@ class BatchEncoder:
     def decode_deps(self, dep_mask: np.ndarray) -> List[List[TxnId]]:
         """[B, E] bool -> per-batch-txn sorted unique dependency TxnIds."""
         out: List[List[TxnId]] = []
+        ids, n = self.entry_ids, self.state.num_entries
         for b in range(len(self.batch)):
             row = dep_mask[b]
-            ids = {self.entries[e][1]
-                   for e in np.nonzero(row[:len(self.entries)])[0]}
-            out.append(sorted(ids))
+            out.append(sorted({ids[e] for e in np.nonzero(row[:n])[0]}))
         return out
 
     def decode_key_deps(self, dep_mask: np.ndarray
                         ) -> List[Dict[Key, List[TxnId]]]:
         """[B, E] bool -> per-batch-txn {key: sorted dep ids} maps."""
         out: List[Dict[Key, List[TxnId]]] = []
+        ids, keys = self.entry_ids, self.keys
+        n, entry_key = self.state.num_entries, self.state.entry_key
         for b in range(len(self.batch)):
             m: Dict[Key, List[TxnId]] = {}
-            for e in np.nonzero(dep_mask[b][:len(self.entries)])[0]:
-                ki, tid, _, _ = self.entries[e]
-                m.setdefault(self.keys[ki], []).append(tid)
+            nz = np.nonzero(dep_mask[b][:n])[0]
+            for e, ki in zip(nz.tolist(), entry_key[nz].tolist()):
+                m.setdefault(keys[ki], []).append(ids[e])
             out.append({k: sorted(v) for k, v in m.items()})
         return out
 

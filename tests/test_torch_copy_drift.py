@@ -22,7 +22,17 @@ DEVIATIONS = {
     "__init__.py": "describes the port and its rules, not the JAX package",
     "ops/__init__.py": "exports the port's torch ops and CUDA wrappers",
     "ops/deps_kernel.py": "K1, succ_w and the in-window graph in torch",
-    "ops/encode.py": "window_to_tensors builds torch tensors",
+    "ops/encode.py": "window_to_tensors builds torch tensors; the window's "
+                     "universe, ranks and entry columns come from the native "
+                     "CFK core's encode_window pass where it loads (the "
+                     "Python walk is its fallback tier), the decoders read a "
+                     "flat TxnId list and the key column in place of the "
+                     "per-entry tuples, the rank map is built when read, and "
+                     "the key universe is sorted and indexed by token (no "
+                     "key_index map)",
+    "native/_cfk_core.cpp": "encode_window, the device encoder's walk over "
+                            "the CFKs' lists in one C++ pass, exists only in "
+                            "the port",
     "ops/range_kernel.py": "range stabbing in torch, K5's plain versions",
     "ops/recovery_kernel.py": "the recovery scans in torch",
     "ops/sharded.py": "the sharded step stacked or over torch.distributed",

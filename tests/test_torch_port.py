@@ -49,16 +49,35 @@ def _worlds(seed, **kw):
             workload.random_world(PortRandom(seed), **kw))
 
 
-def _assert_same_encoding(jax_world, port_world):
-    je, pe = JaxEncoder(*jax_world), port_encode.BatchEncoder(*port_world)
-    for f in STATE:
-        assert np.array_equal(getattr(pe.state, f), getattr(je.state, f)), f
-    for f in BATCH:
-        assert np.array_equal(getattr(pe.dbatch, f), getattr(je.dbatch, f)), f
-    assert (pe.state.num_entries, pe.state.num_keys, pe.dbatch.num_txns) == \
-        (je.state.num_entries, je.state.num_keys, je.dbatch.num_txns)
-    assert _ids(pe.universe) == _ids(je.universe)
-    return je, pe
+def _assert_same_encoding(jax_world, port_world, monkeypatch):
+    """The port's encoder == the JAX package's, under each of its tiers:
+    the native core's pass where it loads, and the Python tier with the
+    core turned off through its loader (``ACCORD_NATIVE=0``)."""
+    import accord_tpu_torch.native as native_pkg
+    je = JaxEncoder(*jax_world)
+    tiers = {}
+    for native_on in (True, False):
+        with monkeypatch.context() as m:
+            if not native_on:
+                m.setenv("ACCORD_NATIVE", "0")
+                m.setattr(native_pkg, "_cfk_tried", False)
+                m.setattr(native_pkg, "_cfk_mod", None)
+            pe = port_encode.BatchEncoder(*port_world)
+        tiers[pe.tier] = pe
+        for f in STATE:
+            assert np.array_equal(getattr(pe.state, f),
+                                  getattr(je.state, f)), (pe.tier, f)
+        for f in BATCH:
+            assert np.array_equal(getattr(pe.dbatch, f),
+                                  getattr(je.dbatch, f)), (pe.tier, f)
+        assert (pe.state.num_entries, pe.state.num_keys,
+                pe.dbatch.num_txns) == \
+            (je.state.num_entries, je.state.num_keys, je.dbatch.num_txns)
+        assert _ids(pe.universe) == _ids(je.universe)
+        assert [k.token for k in pe.keys] == [k.token for k in je.keys]
+    assert "python" in tiers
+    assert ("native" in tiers) == (native_pkg.get_cfk() is not None)
+    return je, tiers.get("native", tiers["python"])
 
 
 def test_random_source_gives_the_same_stream():
@@ -96,7 +115,7 @@ def test_timestamp_order_and_witnesses_match_jax():
 
 
 @pytest.mark.parametrize("seed", range(3))
-def test_cfk_and_encoder_match_jax_on_random_world(seed):
+def test_cfk_and_encoder_match_jax_on_random_world(seed, monkeypatch):
     """Same seed -> same per-key conflict indexes (ids, statuses, executeAts,
     missing[]), same encoder arrays, same scalar deps oracle."""
     (jc, jb), (pc, pb) = _worlds(seed)
@@ -107,16 +126,16 @@ def test_cfk_and_encoder_match_jax_on_random_world(seed):
         assert list(map(int, ps)) == list(map(int, js))
         assert _ids(pe) == _ids(je)
         assert [_ids(m) for m in pm] == [_ids(m) for m in jm]
-    _assert_same_encoding((jc, jb), (pc, pb))
+    _assert_same_encoding((jc, jb), (pc, pb), monkeypatch)
     want = [_ids(r) for r in jax_scalar_deps_oracle(jc, jb)]
     assert [_ids(r) for r in port_encode.scalar_deps_oracle(pc, pb)] == want
 
 
-def test_build_world_matches_jax_bench():
+def test_build_world_matches_jax_bench(monkeypatch):
     """A small benchmark world: same encoding, oracle and scalar edges."""
     kw = dict(n_keys=64, n_existing=600, n_batch=96, seed=42)
     jw, pw = bench.build_world(**kw), workload.build_world(**kw)
-    _assert_same_encoding(jw, pw)
+    _assert_same_encoding(jw, pw, monkeypatch)
     assert [_ids(r) for r in port_encode.scalar_deps_oracle(*pw)] == \
         [_ids(r) for r in jax_scalar_deps_oracle(*jw)]
     assert workload.scalar_edges_per_sec(*pw)[1] == \

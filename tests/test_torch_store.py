@@ -21,6 +21,7 @@ from accord_tpu.impl.device_store import \
     DeviceCommandStore as JaxDeviceCommandStore
 from accord_tpu.impl.device_store import \
     MeshDeviceCommandStore as JaxMeshDeviceCommandStore
+from accord_tpu_torch import native
 from accord_tpu_torch.impl.device_store import (DeviceCommandStore,
                                                 MeshDeviceCommandStore)
 from accord_tpu_torch.workload import (STORE_KIT_MODULES, StoreNode,
@@ -62,6 +63,13 @@ def differential(plan, port_factory=None, jax_factory=None):
         results.append(got)
     assert store_state(port.store) == store_state(ref.store)
     assert not port.store.device_disabled
+    # every deps flush counted under its encoder's tier: the flat store's
+    # native pass where the core loads, the mesh store's Python walk
+    tiers = port.store.device_encode_windows
+    flat_native = native.get_cfk() is not None and not isinstance(
+        port.store, MeshDeviceCommandStore)
+    assert tiers["python" if flat_native else "native"] == 0
+    assert tiers["native" if flat_native else "python"] > 0
     return device_counters(port.store), results
 
 
