@@ -13,6 +13,10 @@ limit is 0:
 * ``scans_off_card``: deps scans that the window's flush had to serve
   from the card (the reference's ``served``) and the store served on the
   host instead, counted window by window;
+* ``range_scans_off_card``: the same for the range-conflict arm: queries
+  of the range index that the window's flush had to serve from its stab
+  on the card (the reference's ``range_served``) and the store served on
+  the host, counted window by window;
 * ``waves_wrong``: Applies whose wave in the store's plan differs from the
   reference's Kahn layer of the window's Apply graph (or that the plan
   left out or added);
@@ -26,8 +30,8 @@ from typing import Dict, List
 from accord_bench.reference.store import ReferenceStore
 
 LIMITS = {"replies_wrong": 0, "applies_missing": 0, "data_wrong": 0,
-          "writes_out_of_order": 0, "scans_off_card": 0, "waves_wrong": 0,
-          "store_faults": 0}
+          "writes_out_of_order": 0, "scans_off_card": 0,
+          "range_scans_off_card": 0, "waves_wrong": 0, "store_faults": 0}
 
 
 def out_of_order(writes) -> int:
@@ -50,13 +54,16 @@ def waves_wrong(got: Dict[int, int], want: Dict[int, int]) -> int:
 def judge(traffic, run) -> Dict[str, int]:
     """-> {number: value}.  `run` holds what the program gave, window by
     window: `replies`, `applied` (the hlcs that applied), `served` (deps
-    scans served from the card), `plans` ({hlc: wave}); and at the end
-    `data` (its data store), `writes` (its write log) and `store_faults`."""
+    scans served from the card), `range_served` (range-arm queries served
+    from the card), `plans` ({hlc: wave}); and at the end `data` (its data
+    store), `writes` (its write log) and `store_faults`."""
     ref = ReferenceStore(traffic.txns)
-    replies = applies = off_card = waves = 0
+    replies = applies = off_card = range_off_card = waves = 0
     for w, got in enumerate(run.replies):
         ops = traffic.ops(w)
         off_card += max(0, ref.served(ops) - run.served[w])
+        range_off_card += max(0, ref.range_served(ops)
+                              - run.range_served[w])
         want = ref.run_window(ops)
         replies += sum(g != x for g, x in zip(got, want))
         replies += abs(len(got) - len(want))
@@ -72,6 +79,7 @@ def judge(traffic, run) -> Dict[str, int]:
             "data_wrong": data_wrong,
             "writes_out_of_order": out_of_order(run.writes),
             "scans_off_card": off_card,
+            "range_scans_off_card": range_off_card,
             "waves_wrong": waves,
             "store_faults": run.store_faults}
 

@@ -9,8 +9,8 @@ transaction misses the conflicts that arrived earlier in its own window
 (what the program's version gate exists to prevent).  Its answers then go
 through ``check.judge`` as the program's would, and ``replies_wrong`` must
 come out above its limit.  The control's scans are all its own, so it
-serves every scan the reference says the card must serve, and its waves
-are the reference's layers of its own executeAts.
+serves every scan and range-arm query the reference says the card must
+serve, and its waves are the reference's layers of its own executeAts.
 
     python3 -m accord_bench.control --workload <cell> --seed <n>
                                     [--windows N]
@@ -43,7 +43,8 @@ class SnapshotStore(ReferenceStore):
 
     def _deps(self, i: int, before: tuple) -> tuple:
         keyed, ranged = super()._deps(i, before)
-        return tuple(d for d in keyed if d[1] not in self._fresh), ranged
+        return (tuple(d for d in keyed if d[1] not in self._fresh),
+                tuple(d for d in ranged if d[2] not in self._fresh))
 
 
 def control_answers(traffic: Traffic, n_windows: int,
@@ -51,12 +52,14 @@ def control_answers(traffic: Traffic, n_windows: int,
     """The answers of `store_cls` (by default the control) to the first
     `n_windows` windows, as ``check.judge`` takes the program's."""
     store = store_cls(traffic.txns)
-    run = SimpleNamespace(replies=[], applied=[], served=[], plans=[],
-                          writes=[], store_faults=0)
+    run = SimpleNamespace(replies=[], applied=[], served=[],
+                          range_served=[], plans=[], writes=[],
+                          store_faults=0)
     for w in range(n_windows):
         ops = traffic.ops(w)
         n0 = len(store.applied)
         run.served.append(store.served(ops))
+        run.range_served.append(store.range_served(ops))
         run.replies.append(store.run_window(ops))
         run.plans.append(store.waves(ops))
         done = store.applied[n0:]

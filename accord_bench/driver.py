@@ -3,11 +3,12 @@
 ``QueueScheduler``, ``StoreNode`` and ``LifecycleRunner`` are frozen copies
 of ``QueueScheduler``, ``StoreNode``, ``store_kit`` and ``StorePlanRunner``
 in ``accord_tpu_torch/workload/worlds.py`` at commit f0ab6b5, cut to the
-key-domain ops the lifecycle sends (PreAccept, Accept, stable Commit,
-Apply), with two additions: the node's events listener records the host
-time at which each transaction applied, and its data store logs the order
-in which writes run.  Each op is built from the generated plain data with
-the program's own classes; its reply is kept as plain tuples.
+ops the lifecycle sends (PreAccept, Accept, stable Commit, Apply) over
+key-domain transactions and range-domain READs, with two additions: the
+node's events listener records the host time at which each transaction
+applied, and its data store logs the order in which writes run.  Each op
+is built from the generated plain data with the program's own classes;
+its reply is kept as plain tuples.
 """
 
 from __future__ import annotations
@@ -29,12 +30,12 @@ def store_kit() -> SimpleNamespace:
     return SimpleNamespace(
         Agent=spi.Agent, EventsListener=spi.EventsListener,
         ProgressLog=spi.ProgressLog, ListStore=ls.ListStore,
-        ListRead=ls.ListRead, ListQuery=ls.ListQuery,
-        ListUpdate=ls.ListUpdate, C=cmds, SaveStatus=status.SaveStatus,
-        PreLoadContext=store.PreLoadContext, Deps=deps.Deps,
-        Key=keys.Key, Keys=keys.Keys, Ranges=keys.Ranges, Route=keys.Route,
-        Ballot=ts.Ballot, Domain=ts.Domain, Timestamp=ts.Timestamp,
-        TxnId=ts.TxnId,
+        ListRead=ls.ListRead, ListRangeRead=ls.ListRangeRead,
+        ListQuery=ls.ListQuery, ListUpdate=ls.ListUpdate, C=cmds,
+        SaveStatus=status.SaveStatus, PreLoadContext=store.PreLoadContext,
+        Deps=deps.Deps, Key=keys.Key, Keys=keys.Keys, Ranges=keys.Ranges,
+        Route=keys.Route, RoutingKey=keys.RoutingKey, Ballot=ts.Ballot,
+        Domain=ts.Domain, Timestamp=ts.Timestamp, TxnId=ts.TxnId,
         TxnKind=ts.TxnKind, Txn=txn.Txn)
 
 
@@ -151,7 +152,8 @@ class LifecycleRunner:
     the txn id), Accept (at the preaccept's executeAt, then the deps up to
     it), a stable Commit, and Apply (writes from the txn's update).  Each op
     declares the probes its message declares, so a DeviceCommandStore
-    precomputes them for its window.
+    precomputes them for its window: every op its deps probe, over keys or
+    ranges, and a key-domain Apply its execute probe.
 
     ``run_window`` submits a window's ops, drains the node's scheduler (one
     flush) and returns each op's reply as plain tuples."""
@@ -196,12 +198,19 @@ class LifecycleRunner:
         kind, domain = k.TxnKind(kind), k.Domain(domain)
         st = self.txns[i] = _PlanTxn()
         st.txn_id = k.TxnId.create(1, hlc, kind, domain, node)
-        keys = k.Keys.of(*parts)
-        update = (k.ListUpdate({k.Key(t): i for t in writes})
-                  if kind == k.TxnKind.WRITE else None)
-        txn = k.Txn(kind, keys, read=k.ListRead(keys),
-                    query=k.ListQuery(), update=update)
-        st.route = k.Route.of_keys(keys[0].as_routing(), keys.as_routing())
+        if domain == k.Domain.KEY:
+            keys = k.Keys.of(*parts)
+            update = (k.ListUpdate({k.Key(t): i for t in writes})
+                      if kind == k.TxnKind.WRITE else None)
+            txn = k.Txn(kind, keys, read=k.ListRead(keys),
+                        query=k.ListQuery(), update=update)
+            st.route = k.Route.of_keys(keys[0].as_routing(),
+                                       keys.as_routing())
+        else:
+            ranges = k.Ranges.of(*parts)
+            txn = k.Txn(kind, ranges, read=k.ListRangeRead(ranges),
+                        query=k.ListQuery())
+            st.route = k.Route.of_ranges(k.RoutingKey(parts[0][0]), ranges)
         st.txn = txn.slice(self.store.ranges, include_query=True)
         st.witnessed = st.pa_deps = st.acc_deps = None
         return st
@@ -265,8 +274,9 @@ class LifecycleRunner:
     def _apply(self, i: int):
         k, st = self.kit, self._txn(i)
         tid, keys, at = st.txn_id, st.txn.keys, self._execute_at(st)
-        ctx = k.PreLoadContext.for_txn(tid, keys,
-                                       execute_probes=((tid, at, keys),))
+        # a range transaction's Apply is planned by no wave
+        probes = ((tid, at, keys),) if tid.domain == k.Domain.KEY else ()
+        ctx = k.PreLoadContext.for_txn(tid, keys, execute_probes=probes)
 
         def fn(safe):
             writes = st.txn.execute(tid, at, None)

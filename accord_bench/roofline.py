@@ -1,8 +1,8 @@
 """Peaks of the card and the least bytes each device step must move.
 
-The byte counts are copied from ``chip_smoke.py`` at commit f0ab6b5 (the
-K1, K2, succ_w and graph counts of its timing phase), written as functions
-of a launch's shapes.  Each counts the step's inputs read once and its
+The byte counts of K1, K2, succ_w and the graph are copied from
+``chip_smoke.py`` at commit f0ab6b5 (the counts of its timing phase), and
+the range stab's written beside them, as functions of a launch's shapes.  Each counts the step's inputs read once and its
 outputs written once, so they hold whatever implements the step.  The
 steps' operation counts depend on the data (which pairs share a key, how
 many writes a key holds), so the least time here is the byte bound alone.
@@ -40,6 +40,12 @@ def waves_bytes(b: int) -> int:
     """K2: the [B, B] bool graph and int32 [B] ranks read, int32 [B] waves
     written."""
     return b * b + 4 * b + 4 * b
+
+
+def range_bytes(q: int, n: int) -> int:
+    """The range index's stab: int32 [N] starts and ends and int32 [Q]
+    query bounds read, the [Q, N] bool mask written."""
+    return 4 * (2 * n + 2 * q) + q * n
 
 
 def least_seconds(nbytes: int) -> float:

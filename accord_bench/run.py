@@ -176,7 +176,7 @@ def main(argv=None) -> int:
     runner.prepare(len(traffic.txns))
     span = trace.span_factory(None)
     got = SimpleNamespace(replies=[], applied=[], served=[], plans=[],
-                          misses=[])
+                          misses=[], range_served=[], range_misses=[])
     planned = _record_plans(store)
     causes = store.device_miss_causes
     starts, ends = [], []
@@ -184,6 +184,7 @@ def main(argv=None) -> int:
     def window(w: int) -> None:
         n0, h0 = len(node.applied), store.device_hits
         m0 = [causes[c] for c in MISS_CAUSES]
+        r0, rm0 = store.device_range_hits, store.device_range_misses
         planned.clear()
         starts.append(time.perf_counter())
         got.replies.append(runner.run_window(traffic.ops(w)))
@@ -191,6 +192,8 @@ def main(argv=None) -> int:
         got.applied.append([h for h, _ in node.applied[n0:]])
         got.served.append(store.device_hits - h0)
         got.misses.append([causes[c] - m for c, m in zip(MISS_CAUSES, m0)])
+        got.range_served.append(store.device_range_hits - r0)
+        got.range_misses.append(store.device_range_misses - rm0)
         got.plans.append({tid.hlc: wave for plan in planned
                           for tid, (wave, _eat) in plan.items()})
 
@@ -210,6 +213,7 @@ def main(argv=None) -> int:
         recorder = trace.StepRecorder(record_function)
         recorder.wrap(device_store)
         for attr, name in (("_precompute", "flush.deps"),
+                           ("_precompute_ranges", "flush.ranges"),
                            ("_plan_waves", "flush.waves")):
             setattr(store, attr, _spanned(getattr(store, attr), span, name))
         profiler = store.profiler = Profiler(Registry(), sample_n=1)
@@ -218,6 +222,8 @@ def main(argv=None) -> int:
         prof = profile(activities=activities)
         prof.__enter__()
     entries_first = _entries(store)
+    counters_first = device_counters(store)
+    usage_first = _usage()
     w = warm
     with span("window"):
         t_start = time.perf_counter()
@@ -229,9 +235,12 @@ def main(argv=None) -> int:
         if cuda:
             torch.cuda.synchronize(device)
         t_end = time.perf_counter()
+    usage = {k: v - usage_first[k] for k, v in _usage().items()}
     if prof is not None:
         prof.__exit__(None, None, None)
     entries_last = _entries(store)
+    counters = {k: v - counters_first[k]
+                for k, v in device_counters(store).items()}
     memory_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
 
     # the program's answers, then its state freed before the reference runs
@@ -267,7 +276,7 @@ def main(argv=None) -> int:
     run = SimpleNamespace(
         device=device.type, seconds=t_end - t_start, txns=len(done),
         windows=w - warm, laps_s=laps_s, lifecycle_ms=lifecycle_ms,
-        trace=summary,
+        trace=summary, counters=counters,
         least_bytes=dict(recorder.least_bytes) if recorder else {})
     metrics = {}
     if args.trace:
@@ -314,6 +323,12 @@ def main(argv=None) -> int:
         "device_hits": got.served[measured],
         "device_misses": dict(zip(MISS_CAUSES, map(list, zip(
             *got.misses[measured])))),
+        # the range-arm queries each measured window served from the
+        # card's stab, and those it served on the host
+        "device_range_hits": got.range_served[measured],
+        "device_range_misses": got.range_misses[measured],
+        "counters": counters,
+        "usage": usage,
         "native": {"sorted_arrays": native.AVAILABLE,
                    "cfk": native.get_cfk() is not None}}
     line["checks"] = {k: {"value": v, "limit": check.LIMITS[k]}
@@ -356,6 +371,33 @@ def _spanned(fn, span, name):
         with span(name):
             return fn(*a, **kw)
     return call
+
+
+def device_counters(store) -> dict:
+    """Every ``device_*`` counter of the store, by attribute; a labelled
+    family as ``<attribute>.<label>``."""
+    from accord_tpu_torch.obs.views import CounterDict, MetricView
+    out = {}
+    for klass in reversed(type(store).__mro__):
+        for name, view in vars(klass).items():
+            if name.startswith("device_") and isinstance(view, MetricView) \
+                    and view.kind == "counter":
+                out[name] = getattr(store, name)
+    for name, family in vars(store).items():
+        if name.startswith("device_") and isinstance(family, CounterDict):
+            out.update({f"{name}.{k}": family[k] for k in family.keys()})
+    return out
+
+
+def _usage() -> dict:
+    """The process's running totals, read as the window opens and closes:
+    CPU seconds (against the window's seconds, how long the host kept it
+    off its core) and the collector's passes by generation."""
+    import gc
+    out = {"cpu_s": time.process_time()}
+    for g, stats in enumerate(gc.get_stats()):
+        out[f"gc{g}"] = stats["collections"]
+    return out
 
 
 def _entries(store) -> int:

@@ -1,15 +1,20 @@
 """The traffic generator against hand-worked cases."""
 
+import hashlib
 import json
 from collections import Counter
 from pathlib import Path
 
 import numpy as np
+import pytest
 
+from accord_bench import generate
 from accord_bench.generate import (
-    CUSTOMER, DISTRICT, HISTORY, ITEM, NEW_ORDER, ORDER, ORDER_LINE, READ,
-    STOCK, TABLE_SHIFT, WAREHOUSE, WRITE, ZIPF_ZETAN, ScrambledZipfian,
-    TpccKeys, Traffic, fnvhash64, row, seeded_rng)
+    KEY_DOMAIN, RANGE_DOMAIN, READ, WRITE, ZIPF_ZETAN, ScrambledZipfian,
+    Traffic, fnvhash64, seeded_rng)
+from accord_bench.key_models.tpcc import (
+    CUSTOMER, DISTRICT, HISTORY, ITEM, NEW_ORDER, ORDER, ORDER_LINE, STOCK,
+    TABLE_SHIFT, WAREHOUSE, TpccKeys, row)
 
 CONFIGS = Path(__file__).resolve().parents[1] / "configs"
 YCSB = json.loads((CONFIGS / "ycsb-a.json").read_text())
@@ -186,3 +191,78 @@ def test_nurand_by_hand():
     # the run-time C_LAST differs from the load's by 65-119, not 96 or 112
     delta = abs(keys.c_last - keys.c_load)
     assert 65 <= delta <= 119 and delta not in (96, 112)
+
+
+# sha256 of the JSON of the first 8 windows' transactions of each accepted
+# configuration under its cell's mix, taken before the key models moved
+# into key_models/: the move keeps every draw
+PINNED = {
+    ("ycsb-a", "lifecycle-w512", 0):
+        "81a55ad0a5f6ae0026ac718cc42696a378c4440070197f2053b812c8b6a6622b",
+    ("ycsb-a", "lifecycle-w512", 1):
+        "daa27f93d6ed155e6d87fe33dbcdb6cbc3ef96c3cec411440b9825b96f7816d8",
+    ("ycsb-a", "lifecycle-w512", 2):
+        "372830d08a0c9be197686f531352d442481d451736d60adca6c510de3e89c25b",
+    ("tpcc", "lifecycle-w128", 0):
+        "3374fe0c340a055e57767e981c381e72d8e59b60b79e241c65db2d5b1b6d11fe",
+    ("tpcc", "lifecycle-w128", 1):
+        "d60b596ff86538376cd499d305b823d0fff6ae988bd9b22ad668204f4eb63b39",
+    ("tpcc", "lifecycle-w128", 2):
+        "11ff361f060eaece376ea950d535bc1aed61f1fddf9a91548c34df989870b9c3",
+}
+
+
+@pytest.mark.parametrize("config,traffic,seed", sorted(PINNED))
+def test_draws_match_the_pinned_digest(config, traffic, seed):
+    t = Traffic(json.loads((CONFIGS / f"{config}.json").read_text()),
+                json.loads((CONFIGS.parent / "traffic" / f"{traffic}.json")
+                           .read_text()), seed)
+    t.ops(7)
+    txns = t.txns[:8 * t.window]
+    digest = hashlib.sha256(json.dumps(txns, default=int).encode())
+    assert digest.hexdigest() == PINNED[(config, traffic, seed)]
+
+
+class Drawn:
+    """A key model that draws the transactions it is given, in turn."""
+
+    def __init__(self, draws):
+        self.draws = iter(draws)
+
+    def draw(self):
+        return next(self.draws)
+
+
+def drawn(monkeypatch, *draws):
+    monkeypatch.setattr(generate, "load_key_model",
+                        lambda name: lambda c, r, s: Drawn(draws))
+    t = Traffic(dict(YCSB, span=[0, 100]), mix(window=len(draws)), 1)
+    t.ops(0)
+    return t.txns
+
+
+def test_range_transactions_are_checked(monkeypatch):
+    txns = drawn(monkeypatch, (READ, RANGE_DOMAIN, ((0, 5), (6, 100)), ()),
+                 (WRITE, KEY_DOMAIN, (3,), (3,)))
+    assert [(k, d, p) for k, d, _h, _n, p, _w in txns] == [
+        (READ, RANGE_DOMAIN, ((0, 5), (6, 100))),
+        (WRITE, KEY_DOMAIN, (3,))]
+    for bad in [(WRITE, RANGE_DOMAIN, ((0, 5),), ()),      # a range WRITE
+                (READ, RANGE_DOMAIN, ((0, 5),), (3,)),     # writes
+                (4, RANGE_DOMAIN, ((0, 5),), ()),          # a sync point
+                (4, KEY_DOMAIN, (3,), ()),
+                (READ, RANGE_DOMAIN, ((0, 5), (5, 9)), ()),  # adjacent
+                (READ, RANGE_DOMAIN, ((6, 9), (0, 5)), ()),  # unsorted
+                (READ, RANGE_DOMAIN, ((4, 4),), ()),       # empty
+                (READ, RANGE_DOMAIN, ((90, 101),), ()),    # past the span
+                (READ, RANGE_DOMAIN, (), ()),
+                (READ, 2, (3,), ())]:
+        with pytest.raises(ValueError):
+            drawn(monkeypatch, bad)
+
+
+def test_key_models_are_found_by_file():
+    assert generate.load_key_model("ycsb").__module__ \
+        == "accord_bench.key_models.ycsb"
+    with pytest.raises(ValueError, match="no key model"):
+        generate.load_key_model("no-such-model")

@@ -8,12 +8,14 @@ import os
 import shutil
 import subprocess
 import sys
+from contextlib import nullcontext
 from pathlib import Path
 from types import SimpleNamespace
 
 import pytest
 
 from accord_bench import roofline, run, trace
+from accord_bench.tests import range_cell
 
 ROOT = Path(__file__).resolve().parents[2]
 CELLS = [w["name"] for w in
@@ -211,3 +213,84 @@ def test_readers_read_or_return_nothing():
     assert got["step_roofline"] == pytest.approx(25.0)
     assert got["device_idle_pct"] == pytest.approx(99.0)
     assert 95 <= got["lifecycle_p95_ms"] <= 96
+
+
+# run a cell in the current directory and print, after run.py's line, the
+# count of the program's PreAccept and Accept replies that hold a range dep
+SPY_RANGE_DEPS = """
+import json, sys
+from accord_bench import check, run
+judge, seen = check.judge, {}
+def spy(traffic, got):
+    seen["range_deps"] = sum(1 for replies in got.replies for r in replies
+                             if r[0] in ("preaccept", "accept") and r[-1][1])
+    return judge(traffic, got)
+check.judge = spy
+rc = run.main(ARGS)
+print(json.dumps(seen))
+sys.exit(rc)
+"""
+
+
+def test_a_range_cell_added_as_data_alone(tmp_path):
+    cell = range_cell.add_range_cell(ROOT, tmp_path)
+    args = ["--workload", cell, "--seed", str(2**31 + 23), "--device", "cpu",
+            "--warmup-windows", "3", "--max-windows", "6", "--seconds", "600"]
+    p = subprocess.run(
+        [sys.executable, "-c", SPY_RANGE_DEPS.replace("ARGS", repr(args))],
+        cwd=tmp_path, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stderr[-3000:]
+    *_, printed, spied = p.stdout.strip().splitlines()
+    line = json.loads(printed)
+    assert line["correct"] is True and line["attempted"] == 6 * 32
+    info = line["info"]
+    assert sum(info["device_range_hits"]) > 0
+    assert sum(info["device_misses"]["key_cover"]) > 0
+    assert info["counters"]["device_range_hits"] \
+        == sum(info["device_range_hits"])
+    assert line["checks"]["range_scans_off_card"] == {"value": 0,
+                                                      "limit": 0}
+    assert json.loads(spied)["range_deps"] > 0
+
+
+def test_range_bytes_by_hand():
+    # int32 starts and ends of N intervals, int32 bounds of Q queries, the
+    # [Q, N] bool mask
+    assert roofline.range_bytes(2, 3) == 4 * (2 * 3 + 2 * 2) + 2 * 3
+    assert roofline.range_bytes(0, 0) == 0
+
+
+def test_the_range_stab_is_traced_as_bench_ranges():
+    import torch
+    from accord_tpu_torch.ops.range_kernel import range_stab_mask
+    opened = []
+
+    def record_function(name):
+        opened.append(name)
+        return nullcontext()
+    module = SimpleNamespace(batched_active_deps_cuda=None,
+                             in_batch_graph=None, execution_waves_cuda=None,
+                             range_stab_mask=range_stab_mask)
+    recorder = trace.StepRecorder(record_function)
+    recorder.wrap(module)
+    starts, ends = torch.tensor([0, 5, 9]), torch.tensor([4, 8, 12])
+    qs, qe = torch.tensor([3, 8]), torch.tensor([6, 9])
+    mask = module.range_stab_mask(starts, ends, qs, qe)
+    assert mask.tolist() == [[True, True, False], [False, False, False]]
+    assert opened == ["bench.ranges"]
+    assert recorder.least_bytes == {"bench.ranges":
+                                    roofline.range_bytes(2, 3)}
+
+
+def test_step_roofline_reads_only_its_steps():
+    def reading(least_bytes, step_s):
+        return run.read_metric("step_roofline", SimpleNamespace(
+            device="cuda", trace={"step_s": step_s},
+            least_bytes=least_bytes))
+    steps = {"bench.deps": 3.35e9}
+    assert reading(steps, {"bench.deps": 0.004}) == pytest.approx(25.0)
+    assert reading(dict(steps, **{"bench.ranges": 1e12}),
+                   {"bench.deps": 0.004, "bench.ranges": 0.001}) \
+        == pytest.approx(25.0)
+    assert reading({"bench.ranges": 1e9}, {"bench.ranges": 0.001}) is None

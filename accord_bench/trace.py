@@ -3,10 +3,11 @@ reduction of ``torch.profiler``'s trace to what the per-layer readers read.
 
 Spans are ``torch.profiler.record_function`` ranges opened by the
 benchmark's own code around the program's calls: ``serve.<op>`` around
-each op's transition, ``flush.deps`` and ``flush.waves`` around the store's
-deps precompute and wave plan, and, inside the flush, ``bench.deps``
-(succ_w and the deps tile), ``bench.graph`` (the in-window graph) and
-``bench.waves`` (K2).  The device steps'
+each op's transition, ``flush.deps``, ``flush.ranges`` and ``flush.waves``
+around the store's deps precompute, range stab and wave plan, and, inside
+the flush, ``bench.deps`` (succ_w and the deps tile), ``bench.graph`` (the
+in-window graph), ``bench.waves`` (K2) and ``bench.ranges`` (the range
+index's [Q, N] stab, plain torch).  The device steps'
 launches are attributed to the ``bench.*`` span open when the host
 launched them (by the CUDA correlation id), and each launch's shapes are
 recorded for its least bytes (``roofline.py``).
@@ -37,9 +38,10 @@ class StepRecorder:
         self.least_bytes: Dict[str, int] = defaultdict(int)
 
     def wrap(self, module) -> None:
-        deps, graph, waves = (module.batched_active_deps_cuda,
-                              module.in_batch_graph,
-                              module.execution_waves_cuda)
+        deps, graph, waves, stab = (module.batched_active_deps_cuda,
+                                    module.in_batch_graph,
+                                    module.execution_waves_cuda,
+                                    module.range_stab_mask)
 
         def deps_step(*args):
             e, (b, k) = args[0].shape[-1], args[7].shape
@@ -59,9 +61,16 @@ class StepRecorder:
             with self.rf("bench.waves"):
                 return waves(dep_bb, txn_rank, stats)
 
+        def ranges_step(starts, ends, q_starts, q_ends):
+            self.least_bytes["bench.ranges"] += roofline.range_bytes(
+                q_starts.shape[0], starts.shape[0])
+            with self.rf("bench.ranges"):
+                return stab(starts, ends, q_starts, q_ends)
+
         module.batched_active_deps_cuda = deps_step
         module.in_batch_graph = graph_step
         module.execution_waves_cuda = waves_step
+        module.range_stab_mask = ranges_step
 
 
 def span_factory(record_function):
